@@ -6,26 +6,31 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each unguarded (a failure raises and the script exits non-zero):
   1. the card's name and power limit; the host engine and the CUDA kernels
      built from this checkout's sources, with their build times;
-  2. each kernel against its plain PyTorch version on the card, bit for bit,
-     on the stream-order bins of the 256^3 field and on synthetic streams
-     (zeros, SENTINELs, symbols across the quantizer's whole range, and a
-     Fibonacci histogram whose Huffman codes exceed 32 bits), and their
-     times (CUDA events, after a warm-up, in the order plain, kernel,
-     kernel, plain);
+  2. each kernel against its plain PyTorch version on the card, bit for bit:
+     the encode kernels on the stream-order bins of the 256^3 field and on
+     synthetic streams (zeros, SENTINELs, symbols across the quantizer's
+     whole range, and a Fibonacci histogram whose Huffman codes exceed 32
+     bits); the decode kernels on the 256^3 archive's Huffman stream and on
+     synthetic streams (codes of up to 63 bits, a shortest code of 1 bit,
+     fewer than 64 windows, a code that never synchronises). Their times
+     (CUDA events, after a warm-up, in the order plain, kernel, kernel,
+     plain), each kernel's bound, and the one PyTorch call that computes
+     the same function where there is one;
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
-     from radius) compressed on the card, archives sha256-equal to the host
-     engine's;
+     from radius, a constant stream, f64, codes over 32 bits) compressed and
+     decompressed on the card, archives sha256-equal to the host engine's
+     and decodes bit-equal to its decode;
   4. the main path: sz3_tpu_torch.compress / decompress on the card at
      ABS 1e-3 with the default Config (tuner on), on bench.nyx_like(256) and
-     nyx_like(512). The archives must be sha256-equal to the host engine's,
-     the decodes bit-equal to its decode and within the bound, and every
-     kernel launched. Wall times, where the encode and decode time goes, and
-     the card's busy time over one warm encode and decode (torch.profiler).
-The host engine's archives are made by sz3_tpu_torch.build.host_engine()
-(the engine the port shares) inside the port's own container helpers.
-The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels. Without a CUDA device, or without the repository beside it, the
-script prints no result and exits 2.
+     nyx_like(512), and an f64 round trip at 256^3. The archives must be
+     sha256-equal to the host engine's, the decodes bit-equal to its decode
+     and within the bound, and every kernel launched. Wall times, where the
+     encode and decode time goes, and the card's busy time over one warm
+     encode and decode, split by kind (torch.profiler).
+The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
+sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
+{...}}; the line before it lists the kernels. Without a CUDA device, or
+without the repository beside it, the script prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ ROOT = Path(__file__).resolve().parent
 EB = 1e-3
 SIZES = (256, 512)
 REPS = 20
+PLAIN_SCAN_REPS = 1        # the plain scan is thousands of small launches
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+# the kernels are 32-bit integer work outside the tensor cores; the float32
+# rate outside the tensor cores stands in as their peak
+OPS_PER_S = 67e12
 
 
 def fail(msg: str):
@@ -83,9 +93,12 @@ def main() -> int:
 
     import sz3_tpu_torch as szp
     from bench import nyx_like
+    from sz3_tpu_torch.algos import device_decode as dd
     from sz3_tpu_torch.algos import device_encode as de
     from sz3_tpu_torch.algos import torch_backend
+    from sz3_tpu_torch.algos.huffman import build_table
     from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import entropy_decode as dec
     from sz3_tpu_torch.ops import entropy_device as ed
     from sz3_tpu_torch.ops import stream_order
     from sz3_tpu_torch.ops.interp_fast import (bins_to_grid, decode_grid_fast, encode_grid_fast,
@@ -100,6 +113,11 @@ def main() -> int:
     def native_decompress(blob):
         conf, payload = szp.open_archive(blob)
         return runtime.decompress_payload(conf, payload)
+
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:7.1f} s] {what}", flush=True)
 
     def sync_time(fn):
         torch.cuda.synchronize()
@@ -120,17 +138,32 @@ def main() -> int:
         stop.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def paired_ms(kernel, plain):
-        p1 = event_ms(plain)
+    def paired_ms(kernel, plain, plain_reps=REPS):
+        p1 = event_ms(plain, plain_reps)
         k1 = event_ms(kernel)
         k2 = event_ms(kernel)
-        p2 = event_ms(plain)
+        p2 = event_ms(plain, plain_reps)
         return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2]
 
+    def bound(nbytes, ops):
+        """(least ms the card could take, what sets it): each input read once
+        and each output written once at the memory rate, or the operations
+        at the peak rate."""
+        by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        return (by, "bytes") if by >= op else (op, "operations")
+
+    def kind_of(name: str) -> str:
+        low = name.lower()
+        if "memcpy" in low:
+            return "HtoD copies" if "htod" in low else "DtoH copies" if "dtoh" in low \
+                else "other copies"
+        return "fills" if "memset" in low else "kernels"
+
     def busy(fn):
-        """(device busy ms, profiled wall ms, device events) over one call:
-        the union of the intervals of every kernel, copy and fill the
-        profiler saw on the card."""
+        """(device busy ms, profiled wall ms, device events, ms by kind) over
+        one call: the union of the intervals of every kernel, copy and fill
+        the profiler saw on the card, and the summed time of each kind
+        (kernels, host-to-device copies, device-to-host copies, fills)."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
@@ -139,14 +172,17 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kinds = {}
+        for e in events:
+            k = kind_of(e.name)
+            kinds[k] = kinds.get(k, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
         total, end = 0.0, float("-inf")
-        for s, e in spans:
+        for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
             if e > end:
                 total += e - max(s, end)
                 end = e
-        return total / 1e3, wall * 1e3, len(spans)
+        return total / 1e3, wall * 1e3, len(events), kinds
 
     def max_abs_diff(a, b) -> int:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -254,28 +290,219 @@ def main() -> int:
           f"(plain,kernel,kernel,plain = {[round(v, 3) for v in k1_runs]})", flush=True)
     print(f"K2+K3 pack_bits at 256^3: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
           f"(plain,kernel,kernel,plain = {[round(v, 3) for v in k2_runs]})", flush=True)
+    nlit = ed.hist_and_literals(stream, radius)[1].numel()
+    k1_bound = bound(4 * num + 4 * ed.table_len(radius) + 4 * nlit, 4 * num)
+    k2_bound = bound(4 * num + 12 * ed.table_len(radius) + 4 * ((total_bits + 31) // 32),
+                     12 * num)
     del x, stream, syn_streams, tables, tc, tl
     torch.cuda.empty_cache()
 
+    # the decode kernels: K4 huff_scan and K5 huff_compact
+    def coded_stream(freq, syms, lo=1, rad=64):
+        """The Huffman stream of the symbols `syms` under the reference tree
+        of the counts `freq` (freq[s] = count of symbol lo + s; the stream
+        need not follow them), packed by K2+K3: (bits, codes, lens, offset,
+        the symbols)."""
+        freq = np.asarray(list(freq) + [0], dtype=np.uint64)
+        codes, lens, _tree = build_table(lo, freq)
+        tc = np.zeros(ed.table_len(rad), np.int64)
+        tl = np.zeros(ed.table_len(rad), np.int32)
+        at = np.arange(lo, lo + freq.size) + 1
+        tc[at] = codes.view(np.int64)
+        tl[at] = lens
+        syms = syms.astype(np.int32)
+        nbits = int(tl[syms + 1].sum())
+        words = ed.pack_bits(torch.from_numpy(syms).to(dev), torch.from_numpy(tc).to(dev),
+                             torch.from_numpy(tl).to(dev), rad, nbits)
+        return de._stream_bytes(words, nbits), codes, lens, lo, syms
+
+    def first_pass_args(nwin):
+        idx = torch.arange(nwin, dtype=torch.int32, device=dev)
+        starts = torch.zeros(nwin, dtype=torch.int32, device=dev)
+        starts[0] = dec.RUN_BITS
+        return idx, starts
+
+    def validate(state, wstart):
+        bad, want = dec.bad_windows(state, wstart)
+        return bad, want, int(bad.sum())
+
+    def scan_to_end(stream_t, total_bits, tables, scan=None):
+        """decode_stream's pass loop, pass by pass: (validated state, windows
+        per pass, seconds in the scans, seconds in the validations)."""
+        scan = scan or dec.scan_windows
+        nwin = -(-total_bits // dec.W_BITS)
+        state = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, tables.cap, dev)))
+        idx, starts = first_pass_args(nwin)
+        wstart = idx.to(torch.int64) * dec.W_BITS
+        redo, scan_s, check_s = [], 0.0, 0.0
+        while True:
+            _, t_s = sync_time(lambda: scan(stream_t, total_bits, tables, idx, starts, state,
+                                            chain=bool(redo)))
+            scan_s += t_s
+            redo.append(idx.numel())
+            (bad, want, nbad), t_s = sync_time(lambda: validate(state, wstart))
+            check_s += t_s
+            if nbad == 0:
+                return state, redo, scan_s, check_s
+            check(len(redo) <= nwin, "the scan passes do not end")
+            idx, starts = dec.rescan_args(bad, want, wstart)
+
+    conf256, payload256 = szp.open_archive(native[256][0])
+    torch_backend._resolve_anchor_stride(conf256)
+    bits256, count256, off256, codes256, lens256, const256, _ = runtime.open_packed(
+        conf256, payload256, np.float32)
+    check(const256 < 0 and count256 == num, "the 256^3 archive's stream is not a Huffman stream")
+    fib64 = [1, 1]
+    while len(fib64) < 64:
+        fib64.append(fib64[-1] + fib64[-2])
+    # the whole 256^3 stream for the first pass and the decode; its first
+    # 4096 windows for the chained rescan too (the plain version steps the
+    # k-th windows of all walks together, and a rough stretch of the field
+    # makes a walk hundreds of windows long)
+    dec_cases = {
+        "256^3 stream": (bits256, codes256, lens256, off256,
+                         runtime.interp_open(conf256, payload256, np.float32)[0]),
+        "256^3 stream, first 4096 windows": (bits256[:4096 * dec.W_BITS // 8], codes256,
+                                             lens256, off256, None),
+        "synthetic, codes up to 63 bits": coded_stream(fib64, rng.integers(0, 64, 400_000) + 1),
+        "synthetic, shortest code 1 bit": coded_stream(
+            [2 ** k for k in range(20, 0, -1)], np.minimum(rng.geometric(0.5, 3_000_000), 20)),
+        "synthetic, under 64 windows": coded_stream(
+            [1000, 600, 350, 200, 120, 70, 40, 20, 10, 5, 2, 1], rng.integers(0, 12, 900) + 1),
+        # 32 codes of 5 bits: a walk that starts off the symbol lattice never
+        # synchronises, so every window after the second is bad and the
+        # chained rescan is one sequential walk (kept short: the plain
+        # version takes one round of launches per window of a walk)
+        "synthetic, never synchronises": coded_stream([5] * 32,
+                                                      rng.integers(0, 32, 20_000) + 1),
+    }
+    k4_err = k5_err = 0
+    for name, (bits, codes, lens, lo, want_syms) in dec_cases.items():
+        total = len(bits) * 8
+        tabs = dec.build_decode_tables(codes, lens, lo, dev)
+        stream_t = dec.upload_bytes(bits, dev, dec.PAD_BYTES)
+        nwin = -(-total // dec.W_BITS)
+        wstart = torch.arange(nwin, device=dev) * dec.W_BITS
+        chained = name != "256^3 stream"
+        states = []
+        for scan in (dec.scan_windows, dec.scan_windows_plain):
+            st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, tabs.cap, dev)))
+            scan(stream_t, total, tabs, *first_pass_args(nwin), st)
+            first = [t.clone() for t in st]
+            bad, want = dec.bad_windows(st, wstart)
+            if chained:
+                scan(stream_t, total, tabs, *dec.rescan_args(bad, want, wstart), st, chain=True)
+            states.append((first, st, int(bad.sum()), int(dec.bad_windows(st, wstart)[0].sum())))
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(a, b) for a, b in zip((*states[0][0], *states[0][1]),
+                                                     (*states[1][0], *states[1][1])))
+        check(err == 0, f"K4 {name}: differs from its plain version (max abs diff {err})")
+        k4_err = max(k4_err, err)
+        st = states[0][1]
+        n64 = st.nout.to(torch.int64)
+        off = torch.cumsum(n64, 0) - n64
+        ck = dec.compact_windows(st.syms, st.nskip, st.nout, off, int(n64.sum()))
+        cp = dec.compact_plain(st.syms, st.nskip, st.nout, off, int(n64.sum()))
+        err = max_abs_diff(ck, cp)
+        check(err == 0, f"K5 {name}: differs from its plain version (max abs diff {err})")
+        k5_err = max(k5_err, err)
+        what = (f"a first pass and a chained rescan of its {states[0][2]} bad windows, which "
+                f"leaves {states[0][3]}" if chained
+                else f"a first pass, which leaves {states[0][2]} bad windows")
+        print(f"K4, K5 {name}: bit-equal to plain over {what} ({nwin} windows, codes of "
+              f"{int(lens[lens > 0].min())}-{int(lens.max())} bits, row length {tabs.cap})",
+              flush=True)
+        if want_syms is not None:
+            stats = {}
+            dense = dec.decode_stream(bits, len(want_syms), codes, lens, lo, dev, stats)
+            check(np.array_equal(dense.cpu().numpy(), want_syms),
+                  f"decode_stream {name}: not the stream's symbols")
+            print(f"  decode_stream == the {len(want_syms)} symbols in {stats['passes']} passes "
+                  f"over {stats['redo_counts']} windows", flush=True)
+            del dense
+        del states, st, ck, cp
+        stamp(f"decode kernels, {name}")
+    check(int(dec_cases["synthetic, codes up to 63 bits"][2].max()) == 63, "no 63-bit code")
+
+    stamp("encode kernels and decode cases done")
+    total256 = len(bits256) * 8
+    tabs = dec.build_decode_tables(codes256, lens256, off256, dev)
+    stream_t = dec.upload_bytes(bits256, dev, dec.PAD_BYTES)
+    nwin256 = -(-total256 // dec.W_BITS)
+    idx_all, starts_all = first_pass_args(nwin256)
+    st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin256, tabs.cap, dev)))
+    k4_ms, k4_plain_ms, k4_runs = paired_ms(
+        lambda: dec.scan_windows(stream_t, total256, tabs, idx_all, starts_all, st),
+        lambda: dec.scan_windows_plain(stream_t, total256, tabs, idx_all, starts_all, st),
+        plain_reps=PLAIN_SCAN_REPS)
+    decoded = int((st.nskip.to(torch.int64) + st.nout).sum())
+    table_bytes = sum(t.numel() * t.element_size() for t in tabs[:5])
+    k4_bound = bound(len(bits256) + table_bytes + 8 * nwin256 + 16 * nwin256 + 4 * decoded,
+                     24 * decoded)
+    st, redo256, _, _ = scan_to_end(stream_t, total256, tabs)
+    nout, off = dec.owned_runs(st, count256)
+    k5_ms, k5_plain_ms, k5_runs = paired_ms(
+        lambda: dec.compact_windows(st.syms, st.nskip, nout, off, count256),
+        lambda: dec.compact_plain(st.syms, st.nskip, nout, off, count256))
+    k5_bound = bound(8 * count256 + 16 * nwin256, 2 * count256)
+    col = torch.arange(tabs.cap, device=dev)[None, :]
+    mask = (col >= st.nskip[:, None]) & (col < (st.nskip + nout)[:, None])
+    check(torch.equal(torch.masked_select(st.syms, mask),
+                      dec.compact_windows(st.syms, st.nskip, nout, off, count256)),
+          "torch.masked_select does not compute K5's function")
+    k5_lib_ms = event_ms(lambda: torch.masked_select(st.syms, mask))
+    print(f"K4 huff_scan, first pass over the 256^3 stream ({nwin256} windows, {decoded} "
+          f"symbols decoded, row length {tabs.cap}): kernel {k4_ms:.3f} ms, plain "
+          f"{k4_plain_ms:.3f} ms ({PLAIN_SCAN_REPS} repetition of the plain version per "
+          f"reading; plain,kernel,kernel,plain = {[round(v, 3) for v in k4_runs]}), bound "
+          f"{k4_bound[0]:.4f} ms by {k4_bound[1]}; no PyTorch call decodes a Huffman stream",
+          flush=True)
+    print(f"K5 huff_compact at 256^3 ({count256} symbols): kernel {k5_ms:.3f} ms, plain "
+          f"{k5_plain_ms:.3f} ms (plain,kernel,kernel,plain = "
+          f"{[round(v, 3) for v in k5_runs]}), bound {k5_bound[0]:.4f} ms by {k5_bound[1]}, "
+          f"torch.masked_select with the mask given {k5_lib_ms:.3f} ms", flush=True)
+    print(f"bounds of the encode kernels at 256^3: K1 {k1_bound[0]:.4f} ms, K2+K3 "
+          f"{k2_bound[0]:.4f} ms, both by bytes; neither has a PyTorch call of its own "
+          f"(torch.bincount is half of K1)", flush=True)
+    del st, mask, col, nout, off, stream_t, tabs, idx_all, starts_all, dec_cases
+    torch.cuda.empty_cache()
+
+    stamp("phase 2 done")
+
     # ---- phase 3: inputs the JAX package hands to the host ----------------------
     edge_rng = np.random.default_rng(11)
+    slab = (np.cumsum(edge_rng.standard_normal((64, 64, 64)), axis=2) * 0.01).astype(np.float32)
+    slab[:6] += edge_rng.standard_normal((6, 64, 64)).astype(np.float32) * 0.2
+    # name -> (field, Config, what its entropy stage must be)
     edges = {
         "no anchor grid (20^3)": (
             (np.cumsum(edge_rng.standard_normal((20, 20, 20)), axis=2) * 0.1).astype(np.float32),
-            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=EB)),
-        "bins far from radius (64^3 noise, ABS 1e-5)": (
+            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=EB), "huffman"),
+        "noise, stored lossless (64^3, ABS 1e-5)": (
             edge_rng.standard_normal((64, 64, 64)).astype(np.float32) * 0.2,
-            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-5)),
+            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-5), "lossless"),
+        "bins far from radius (64^3 with a noisy slab, ABS 1e-5)": (
+            slab, szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-5), "huffman, wide"),
+        "constant stream (30^3 zeros)": (
+            np.zeros((30, 30, 30), np.float32),
+            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=EB), "constant"),
+        "f64 (40x41x42)": (
+            np.cumsum(edge_rng.standard_normal((40, 41, 42)), axis=2) * 0.1,
+            szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=EB), "huffman"),
     }
-    for name, (data, c) in edges.items():
+    for name, (data, c, expect) in edges.items():
         blob_native = native_compress(data, c)
         blob = szp.compress(data, c, device="cuda")
         check(hashlib.sha256(blob).hexdigest() == hashlib.sha256(blob_native).hexdigest(),
               f"{name}: archive sha256 differs from the host engine's")
-        out, _ = szp.decompress(blob, device="cuda")
-        check(np.array_equal(out.cpu().numpy().view(np.int32),
-                             native_decompress(blob_native).view(np.int32)),
+        out, dconf = szp.decompress(blob, device="cuda")
+        check(out.cpu().numpy().tobytes() == native_decompress(blob_native).tobytes(),
               f"{name}: decode not bit-equal to the host engine's")
+        stats = {}
+        if dconf.cmprAlgo == szp.ALGO.INTERP:      # how the entropy decode went
+            dconf, dpayload = szp.open_archive(blob)
+            torch_backend._resolve_anchor_stride(dconf)
+            dd.decode_payload_device(dconf, dpayload, data.dtype, dev, stats)
         ec = c.copy()
         ec.set_dims(data.shape)
         torch_backend._resolve_anchor_stride(ec)
@@ -283,14 +510,68 @@ def main() -> int:
                                     ec.quantbinCnt // 2)
         wl = max(2, ec.quantbinCnt // 2 + 1 - ed.W_HALF)
         outside = int(h[2:].sum() - h[wl:wl + 2 * ed.W_HALF].sum())
-        print(f"edge {name}: archive sha256 == host engine, decode bit-equal "
-              f"(anchor stride {de.plan_for(ec).anchor_stride}, {outside} symbols outside "
-              f"the shared window)", flush=True)
+        how = (f"{stats['nwin']} windows, {stats['passes']} scan passes" if stats
+               else "a constant stream: a fill" if dconf.cmprAlgo == szp.ALGO.INTERP
+               else f"stored as {dconf.cmprAlgo.name}")
+        check(how.startswith({"huffman": str(stats.get("nwin")), "constant": "a constant",
+                              "lossless": "stored as LOSSLESS"}[expect.split(",")[0]]),
+              f"{name}: expected a {expect} entropy stage, got {how}")
+        check(("wide" in expect) <= (outside > 0), f"{name}: no symbol outside the window")
+        print(f"edge {name}: archive sha256 == host engine, decode on the card bit-equal "
+              f"({how}; anchor stride {de.plan_for(ec).anchor_stride}, {outside} symbols "
+              f"outside the shared window)", flush=True)
+
+    stamp("edge archives done")
+    # an archive whose Huffman codes exceed 32 bits: Fibonacci counts over the
+    # bins of a 1-D field, packed and sealed by the port's own encode pieces.
+    # The anchor points are literals (bin 0), as the format wants; a wide
+    # anchor stride leaves two of them, and bin 0 takes the Fibonacci term 2
+    deep_counts = fib[:2] + fib[3:34]
+    deep_n = 2 + sum(deep_counts)
+    dconf = szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=EB)
+    dconf.set_dims((deep_n,))
+    dconf.interpAnchorStride = 1 << 23
+    at_anchor = de.perm_for(dconf, dev) % dconf.interpAnchorStride == 0
+    anchors = torch.nonzero(at_anchor).reshape(-1)
+    check(anchors.numel() == 2, f"{anchors.numel()} anchor points, not 2")
+    deep_bins = np.repeat(np.arange(radius - 16, radius + 17, dtype=np.int32), deep_counts)
+    ds = torch.zeros(deep_n, dtype=torch.int32, device=dev)
+    ds[~at_anchor] = torch.from_numpy(deep_bins[edge_rng.permutation(deep_bins.size)]).to(dev)
+    hist, slots = ed.hist_and_literals(ds, radius)
+    check(torch.equal(slots.to(torch.int64), anchors), "the anchors are not the literals")
+    tree, nbits, tc, tl = de._tree_and_tables(hist, radius, deep_n)
+    check(int(tl.max()) > 32, "the deep archive's codes do not exceed 32 bits")
+    payload = runtime.interp_seal_packed(
+        dconf, tree, de._stream_bytes(ed.pack_bits(ds, tc, tl, radius, nbits), nbits), nbits,
+        deep_n, edge_rng.standard_normal(anchors.numel()).astype(np.float32), 1 << 40)
+    blob = szp.pack_archive(dconf, payload)
+    out, _ = szp.decompress(blob, device="cuda")
+    check(out.cpu().numpy().tobytes() == native_decompress(blob).tobytes(),
+          "codes over 32 bits: decode not bit-equal to the host engine's")
+    print(f"edge codes over 32 bits ({deep_n} symbols, longest code {int(tl.max())} "
+          f"bits): decode on the card bit-equal to the host engine's", flush=True)
+    del ds, tc, tl, out, deep_bins, anchors, at_anchor, hist, slots
+    torch.cuda.empty_cache()
+
+    stamp("phase 3 done")
 
     # ---- phase 4: the main path ---------------------------------------------------
     # launches are counted over the compress/decompress calls only: the
     # counters are zeroed just before them and read just after
-    launches = {"hist_literals": 0, "pack_bits": 0}
+    counters = {"hist_literals": ed.hist_and_literals, "pack_bits": ed.pack_bits,
+                "huff_scan": dec.scan_windows, "huff_compact": dec.compact_windows}
+    launches = dict.fromkeys(counters, 0)
+
+    def drive(fn):
+        """Run one piece of the main path with every launch count set to 0
+        just before it and read just after."""
+        for w in counters.values():
+            w.launches = 0
+        out = sync_time(fn)
+        seen = {k: w.launches for k, w in counters.items()}
+        for k, v in seen.items():
+            launches[k] += v
+        return out, seen
     for n in SIZES:
         if n not in fields:
             t = time.perf_counter()
@@ -304,15 +585,17 @@ def main() -> int:
         sha_native = hashlib.sha256(blob_native).hexdigest()
 
         torch.cuda.reset_peak_memory_stats()
-        ed.hist_and_literals.launches = 0
-        ed.pack_bits.launches = 0
-        blob_cold, enc_cold_s = sync_time(
+        (blob_cold, enc_cold_s), _ = drive(
             lambda: szp.compress(data, szp.Config(absErrorBound=EB), device="cuda"))
-        blob_warm, enc_warm_s = sync_time(
+        (blob_warm, enc_warm_s), enc_seen = drive(
             lambda: szp.compress(data, szp.Config(absErrorBound=EB), device="cuda"))
-        (out, _), dec_s = sync_time(lambda: szp.decompress(blob_native, device="cuda"))
-        launches["hist_literals"] += ed.hist_and_literals.launches
-        launches["pack_bits"] += ed.pack_bits.launches
+        ((out, _), dec_s), _ = drive(lambda: szp.decompress(blob_native, device="cuda"))
+        ((out, _), dec_warm_s), dec_seen = drive(
+            lambda: szp.decompress(blob_native, device="cuda"))
+        check(enc_seen["hist_literals"] >= 1 and enc_seen["pack_bits"] >= 1,
+              f"{n}^3 compress launched {enc_seen}")
+        check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_compact"] >= 1,
+              f"{n}^3 decompress launched {dec_seen}")
         for label, b in (("cold", blob_cold), ("warm", blob_warm)):
             check(hashlib.sha256(b).hexdigest() == sha_native,
                   f"{n}^3 {label} archive sha256 differs from the host engine's")
@@ -328,8 +611,9 @@ def main() -> int:
               f"max err {err:.3e}", flush=True)
         print(f"  encode wall: port cold {enc_cold_s:.3f} s, port warm {enc_warm_s:.3f} s "
               f"({mb / enc_warm_s / 1e3:.3f} GB/s), host engine {native_enc_s:.3f} s", flush=True)
-        print(f"  decode wall: port {dec_s:.3f} s ({mb / dec_s / 1e3:.3f} GB/s), "
-              f"host engine {native_dec_s:.3f} s", flush=True)
+        print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
+              f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; "
+              f"launches per decompress {dec_seen}, per compress {enc_seen}", flush=True)
         del out, out_np
 
         # where the encode time goes: the stages of compress, one by one
@@ -359,56 +643,99 @@ def main() -> int:
               f"D2H {d2h_s:.3f}, host seal {seal_s:.3f}", flush=True)
         del x, bins_list, stream, hist, slots, words, perm
 
-        (stream_h, unpred_h), open_s = sync_time(
-            lambda: runtime.interp_open(c, payload_native, np.float32))
-        hperm = stream_order.host_perm(tuple(c.dims), int(c.interpAlgo), c.interpDirection,
-                                       c.interpAnchorStride)
-        (bins_np, lit_np), place_s = sync_time(lambda: runtime.perm_place(
-            hperm, stream_h, unpred_h, tuple(c.dims), np.float32))
-        (bins_d, lit_d), up2_s = sync_time(lambda: (torch.from_numpy(bins_np).to(dev),
-                                                    torch.from_numpy(lit_np).to(dev)))
+        # where the decode time goes: the stages of decompress, one by one
+        dc, dpayload = szp.open_archive(blob_native)
+        torch_backend._resolve_anchor_stride(dc)
+        (bits, count, offset, codes, lens, _const, unpred), open_s = sync_time(
+            lambda: runtime.open_packed(dc, dpayload, np.float32))
+        (stream_t, values), up2_s = sync_time(lambda: (
+            dec.upload_bytes(bits, dev, dec.PAD_BYTES),
+            dec.upload_bytes(unpred.data, dev)[:unpred.nbytes].view(torch.float32)))
+        tabs, tables_s = sync_time(lambda: dec.build_decode_tables(codes, lens, offset, dev))
+        state, redo, scan_s, check_s = scan_to_end(stream_t, len(bits) * 8, tabs)
+        dense, k5_s = sync_time(lambda: dec.compact_windows(
+            state.syms, state.nskip, *dec.owned_runs(state, count), count))
+        perm = de.perm_for(dc, dev)
+        plan = de.plan_for(dc)
+        lit_d, place_s = sync_time(lambda: stream_order.literal_grid(
+            values, perm, torch.nonzero(dense == 0).reshape(-1), count).reshape(plan.dims))
+        bins_d, scatter_s = sync_time(
+            lambda: stream_order.from_stream(dense, perm, count).reshape(plan.dims))
 
-        def dec():
+        def passes():
             return decode_grid_fast(grid_to_pass_slices(bins_d, plan),
                                     grid_to_pass_slices(lit_d, plan), plan,
-                                    initial_literal(lit_d, plan), None, lit_d.dtype)
+                                    initial_literal(lit_d, plan), bins_d[(0,) * bins_d.dim()],
+                                    lit_d.dtype)
 
-        _, dpass_s = sync_time(dec)
-        dpass_ms = event_ms(dec, reps=3)
-        print(f"  decode stages (s): host open {open_s:.3f}, host perm_place {place_s:.3f}, "
-              f"upload {up2_s:.3f}, device passes {dpass_s:.3f} (events {dpass_ms / 1e3:.3f})",
-              flush=True)
-        del bins_d, lit_d, hperm, bins_np, lit_np
+        staged, dpass_s = sync_time(passes)
+        check(np.array_equal(staged.cpu().numpy().view(np.int32), ref_out.view(np.int32)),
+              f"{n}^3 staged decode not bit-equal to the host engine's")
+        dpass_ms = event_ms(passes, reps=3)
+        print(f"  decode stages (s): host zstd open {open_s:.3f}, upload (stream + literals) "
+              f"{up2_s:.3f}, tables {tables_s:.3f}, K4 {scan_s:.3f} in {len(redo)} passes over "
+              f"{redo} windows, validation {check_s:.3f}, K5 {k5_s:.3f}, literal placement "
+              f"{place_s:.3f}, inverse scatter {scatter_s:.3f}, device passes {dpass_s:.3f} "
+              f"(events {dpass_ms / 1e3:.3f})", flush=True)
+        del bins_d, lit_d, state, dense, stream_t, values, staged, perm
         torch.cuda.empty_cache()
 
         for label, fn in (("encode", lambda: szp.compress(data, szp.Config(absErrorBound=EB),
                                                           device="cuda")),
                           ("decode", lambda: szp.decompress(blob_native, device="cuda"))):
-            busy_ms, wall_ms, events = busy(fn)
+            busy_ms, wall_ms, events, kinds = busy(fn)
             share = f"{100 * busy_ms / wall_ms:.2f} %" if events else "not measured"
+            split = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(kinds.items()))
             print(f"  device busy, warm {label} under torch.profiler: {busy_ms:.2f} ms of "
-                  f"{wall_ms:.2f} ms wall ({share}; {events} device events)", flush=True)
+                  f"{wall_ms:.2f} ms wall ({share}; {events} device events; {split})",
+                  flush=True)
         print(f"  peak device memory from this size's first compress on "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        stamp(f"main path {n}^3 done")
         torch.cuda.empty_cache()
+
+    # the same path in f64 at 256^3
+    data64 = fields[256].astype(np.float64)
+    blob64_native, _ = sync_time(lambda: native_compress(data64, szp.Config(absErrorBound=EB)))
+    (blob64, enc64_s), _ = drive(
+        lambda: szp.compress(data64, szp.Config(absErrorBound=EB), device="cuda"))
+    ((out64, _), dec64_s), seen64 = drive(lambda: szp.decompress(blob64, device="cuda"))
+    check(hashlib.sha256(blob64).hexdigest() == hashlib.sha256(blob64_native).hexdigest(),
+          "f64 256^3 archive sha256 differs from the host engine's")
+    out64 = out64.cpu().numpy()
+    check(out64.dtype == np.float64 and out64.tobytes() == native_decompress(blob64).tobytes(),
+          "f64 256^3 decode not bit-equal to the host engine's")
+    err64 = float(np.abs(out64 - data64).max())
+    check(err64 <= EB, f"f64 256^3 max error {err64} > {EB}")
+    check(seen64["huff_scan"] >= 1 and seen64["huff_compact"] >= 1,
+          f"f64 256^3 decompress launched {seen64}")
+    print(f"main path 256^3 f64 ({data64.nbytes / 1e6:.0f} MB): archive sha256 == host engine, "
+          f"decode bit-equal, max err {err64:.3e}; encode {enc64_s:.3f} s, decode "
+          f"{dec64_s:.3f} s; launches per decompress {seen64}", flush=True)
+    del out64, data64
 
     print(f"main-path launches {launches}", flush=True)
     for k, v in launches.items():
         check(v >= 1, f"kernel {k} was not launched on the main path")
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
+          "the JAX package was imported")
+
+    def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": f"sz3_tpu_torch/csrc/{source}",
+                "replaces": replaces, **extra, "launches": launches[name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
 
     kernels = [
-        {"name": "hist_literals", "route": "cuda",
-         "source": "sz3_tpu_torch/csrc/hist_literals.cu",
-         "replaces": "sz3_tpu/ops/entropy_device.py:124",
-         "launches": launches["hist_literals"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "pack_bits", "route": "cuda",
-         "source": "sz3_tpu_torch/csrc/pack_bits.cu",
-         "replaces": "sz3_tpu/ops/entropy_device.py:308",
-         "also_replaces": "sz3_tpu/ops/entropy_device.py:484",
-         "launches": launches["pack_bits"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        row("hist_literals", "hist_literals.cu", "sz3_tpu/ops/entropy_device.py:124", k1_err,
+            k1_ms, k1_plain_ms, k1_bound, None),
+        row("pack_bits", "pack_bits.cu", "sz3_tpu/ops/entropy_device.py:308", k2_err, k2_ms,
+            k2_plain_ms, k2_bound, None, also_replaces="sz3_tpu/ops/entropy_device.py:484"),
+        row("huff_scan", "huff_scan.cu", "sz3_tpu/ops/entropy_decode.py:283", k4_err, k4_ms,
+            k4_plain_ms, k4_bound, None),
+        row("huff_compact", "huff_compact.cu", "sz3_tpu/ops/entropy_decode.py:470", k5_err,
+            k5_ms, k5_plain_ms, k5_bound, k5_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

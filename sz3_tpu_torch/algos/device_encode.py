@@ -24,9 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz3_tpu.config import Config
-
-from ..build import host_engine
+from .. import runtime
+from ..config import Config
 from ..ops import entropy_device as ed
 from ..ops import stream_order
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
@@ -52,7 +51,6 @@ def perm_for(conf: Config, device) -> torch.Tensor:
 def _huffman_table(offset: int, freq: np.ndarray):
     """The reference Huffman tree of a histogram: (codes uint64, lens, tree
     bytes). The host engine builds it unless a code exceeds 32 bits."""
-    runtime = host_engine()
     try:
         codes, lens, tree = runtime.huff_table(offset, freq)
     except runtime.DeepTreeError:
@@ -112,5 +110,4 @@ def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
     words = ed.pack_bits(bins_stream, tc, tl, plan.radius, total_bits)
     bits_bytes = _stream_bytes(words, total_bits)
     unpred = stream_order.literal_values(x, perm, slots).cpu().numpy()
-    return host_engine().interp_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred,
-                                            cap)
+    return runtime.interp_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)

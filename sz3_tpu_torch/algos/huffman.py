@@ -6,7 +6,7 @@ The host engine's ``runtime.huff_table`` builds the reference tree
 deeper trees with ``DeepTreeError``. The device packer takes codes of up to
 64 bits, so such a tree stays on the device path: :func:`build_table`
 builds the same tree here, with the reference's exact heap and tie
-semantics (sz3_tpu/native/szt/huffman.hpp, ``build_from_freq``,
+semantics (csrc/engine/szt/huffman.hpp, ``build_from_freq``,
 ``assign_codes`` and ``save``), and returns what ``huff_table`` returns.
 A deep tree is rare (its counts must grow like the Fibonacci numbers over
 33 levels, so the stream holds at least 9 million symbols), so this plain

@@ -1,9 +1,10 @@
 """PyTorch execution backend (counterpart of sz3_tpu/algos/jax_backend.py).
 
-The device runs the multi-level prediction+quantization passes and, on the
-encode side, the Huffman histogram and bit packing (algos/device_encode.py).
-The host engine (sz3_tpu.runtime) tunes, builds the Huffman tree, and does
-the framing and zstd. Archives are byte-identical to the host engine's.
+The device runs the multi-level prediction+quantization passes, the Huffman
+histogram and bit packing of the encode (algos/device_encode.py) and the
+Huffman decode (algos/device_decode.py). The package's host engine
+(runtime.py) tunes, builds the Huffman tree, and does the framing and zstd.
+Archives are byte-identical to the host engine's.
 
 Dispatcher semantics follow the host path (reference SZDispatcher.hpp:13-76):
 eb-mode conversion, lossless mode for eb == 0, the buffer-too-small
@@ -17,14 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz3_tpu import runtime
-from sz3_tpu.config import ALGO, Config
-from sz3_tpu.stats import cal_abs_error_bound
-
-from ..build import host_engine
-from . import device_encode
-from ..ops.interp_fast import decode_grid_fast, grid_to_pass_slices, initial_literal
-from ..ops.stream_order import host_perm
+from .. import runtime
+from ..config import ALGO, Config
+from ..stats import cal_abs_error_bound
+from . import device_decode, device_encode
 
 _TODO = {
     ALGO.LORENZO_REG: "LORENZO_REG is ROADMAP Queue 1 item 12",
@@ -62,26 +59,13 @@ def _interp_encode_payload(conf: Config, data: np.ndarray, cap: int,
 def _interp_decode_payload(conf: Config, payload: bytes, dtype,
                            device: torch.device) -> torch.Tensor:
     _resolve_anchor_stride(conf)
-    # the payload header is authoritative over the Config tail (the interp
-    # compressor may store another interpolator): open first, plan after
-    stream, unpred = runtime.interp_open(conf, payload, dtype)
-    perm = host_perm(tuple(conf.dims), int(conf.interpAlgo), conf.interpDirection,
-                     conf.interpAnchorStride)
-    bins_np, literal_np = runtime.perm_place(perm, stream, unpred, tuple(conf.dims), dtype)
-    bins = torch.from_numpy(bins_np).to(device)
-    literal = torch.from_numpy(literal_np).to(device)
-    plan = device_encode.plan_for(conf)
-    return decode_grid_fast(grid_to_pass_slices(bins, plan),
-                            grid_to_pass_slices(literal, plan), plan,
-                            initial_literal(literal, plan), bins[(0,) * bins.dim()],
-                            literal.dtype)
+    return device_decode.decode_payload_device(conf, payload, dtype, device)
 
 
 def compress_payload_torch(conf: Config, data: np.ndarray, cap: int,
                            device: torch.device) -> bytes:
     """Torch-path equivalent of the native dispatcher; mutates `conf` as the
     reference does."""
-    host_engine()
     if conf.openmp:
         raise _unsupported(conf)
     cal_abs_error_bound(conf, data)
@@ -117,7 +101,6 @@ def decompress_payload_torch(conf: Config, payload: bytes, dtype,
                              device: torch.device) -> torch.Tensor:
     """Payload -> tensor on `device`, shaped conf.dims. `dtype` is a
     DataType overriding the archive's, or None."""
-    host_engine()
     dt = runtime.np_dtype_of(dtype if dtype is not None else conf.dataType)
     if conf.openmp:
         raise _unsupported(conf)

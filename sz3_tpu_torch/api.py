@@ -1,5 +1,5 @@
-"""Top-level compress/decompress: the SZ3 container around the payload, the
-same container as sz3_tpu/api.py writes and reads:
+"""Top-level compress/decompress: the SZ3 container around the payload
+(reference api/sz.hpp:7-19; counterpart of sz3_tpu/api.py), all little-endian:
 
   [magic u32][data-version u32][payload size u64] [payload] [Config]
 
@@ -10,16 +10,47 @@ kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import struct
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from sz3_tpu import runtime
-from sz3_tpu.api import _DATA_VER, _HDR, _conf_for, compress_size_bound
-from sz3_tpu.config import Config, DataType, SZ3_MAGIC_NUMBER, version_str
-
+from . import runtime
 from .algos.torch_backend import compress_payload_torch, decompress_payload_torch
+from .config import Config, DataType, SZ3_MAGIC_NUMBER, version_int, version_str
+
+_HDR = struct.Struct("<IIQ")
+_DATA_VER = version_int((3, 3, 2))
+
+
+def zstd_compress_bound(n: int) -> int:
+    """ZSTD_COMPRESSBOUND (zstd.h macro)."""
+    margin = ((128 << 10) - n) >> 11 if n < (128 << 10) else 0
+    return n + (n >> 8) + margin
+
+
+def compress_size_bound(conf: Config, itemsize: int = 0) -> int:
+    """Worst-case archive size (reference api/impl/SZImpl.hpp:33-44).
+
+    `itemsize` is the byte width of the actual element type (the reference is
+    templated on T); falls back to conf.dataType when omitted.
+    """
+    item = itemsize or np.dtype(runtime.np_dtype_of(conf.dataType)).itemsize
+    if conf.openmp:
+        # chunk-level worst case (SZImplOMP.hpp:188-209), computed generously
+        n_chunks = min(64, conf.dims[0]) if conf.dims else 1
+        return (4096 + 4 + n_chunks * (conf.size_est() + 8) +
+                zstd_compress_bound(conf.num * item) + n_chunks * 4096)
+    return 4096 + conf.size_est() + zstd_compress_bound(conf.num * item)
+
+
+def _conf_for(data: np.ndarray, conf: Optional[Config], set_datatype: bool) -> Config:
+    c = conf.copy() if conf is not None else Config(dims=data.shape)
+    c.set_dims(data.shape)
+    if set_datatype:
+        c.dataType = runtime.np_dtype_id(data)
+    return c
 
 
 def _device(device) -> torch.device:

@@ -1,56 +1,90 @@
-"""Build the port's CUDA kernels, and the prerequisites of the host engine.
+"""Build the port's native code at first use: the CUDA kernels and the C++
+host engine. Nothing is built when a module is imported.
 
-Kernels: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes at first use.
-The library's name carries a hash of the sources, so an edited source is
-rebuilt and a stale build is never loaded (as ``sz3_tpu/native/build.py``
-does for the host engine). Nothing is built when a module is imported.
+Kernels: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ctypes.
 
-Host engine: ``sz3_tpu.runtime`` compiles its C++ engine with ``g++ -lzstd``
-at first use. Some machines carry zstd's runtime library (``libzstd.so.1``)
-but not its development files (``zstd.h``, the ``libzstd.so`` link). For
-those, :func:`host_engine` retries the build with ``csrc/zstd/zstd.h`` (the
-declarations of the six zstd functions the engine calls) on the include path
-and a ``libzstd.so`` link to the installed runtime library on the link path.
-The engine then links the machine's own zstd, so archives stay the ones the
-engine writes everywhere else.
+Host engine: ``csrc/engine/`` (the port's copy of the sources under
+``sz3_tpu/native/``) is compiled by ``g++`` into one shared library that
+``runtime.py`` binds with ctypes. ``-ffp-contract=off`` keeps scalar float
+expressions IEEE-exact per operation (no FMA fusion), which the archives'
+bit parity with the reference codec depends on; ``-march=native`` is then
+safe and buys vector width for the quantizer loops. The engine links zstd.
+Some machines carry zstd's runtime library (``libzstd.so.1``) but not its
+development files (``zstd.h``, the ``libzstd.so`` link); there the build
+takes ``csrc/zstd/zstd.h`` (the declarations of the six zstd functions the
+engine calls) and a ``libzstd.so`` link to the installed runtime library,
+both named on the compiler's command line. The engine then links the
+machine's own zstd, so archives stay the ones the engine writes everywhere
+else.
+
+Both libraries go to ``_build/`` under a name that carries a hash of their
+sources, so an edited source is rebuilt and a stale build is never loaded. A
+build writes to a temporary name and renames, under a file lock, so that
+processes that start together build once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes as C
+import fcntl
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+ENGINE_SRC = CSRC / "engine"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
+CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-march=native",
+            "-funroll-loops", "-ffp-contract=off", "-Wall"]
 
 _lib: Optional[C.CDLL] = None
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-
-
-def _tree_hash() -> str:
-    h = hashlib.sha256()
-    cu, cuh = _sources()
-    for f in cu + cuh + [Path(__file__)]:
+def _hash(files: List[Path], flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """Exclusive lock on ``_build/.<name>.lock`` for the time of a build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _drop_stale(pattern: str, keep: Path) -> None:
+    for old in BUILD_DIR.glob(pattern):
+        if old != keep:
+            old.unlink(missing_ok=True)
+
+
+# ---- CUDA kernels ---------------------------------------------------------------
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
 def kernel_lib_path() -> Path:
-    return BUILD_DIR / f"libszt_cuda-{_tree_hash()}.so"
+    cu, cuh = _sources()
+    return BUILD_DIR / f"libszt_cuda-{_hash(cu + cuh, NVCC_FLAGS)}.so"
 
 
 def _nvcc() -> str:
@@ -71,22 +105,34 @@ def build_kernels(verbose: bool = False) -> Path:
     out = kernel_lib_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(s) for s in cu)]
-    if verbose:
-        print("nvcc:", " ".join(cmd), flush=True)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed:\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, out)
-    for old in BUILD_DIR.glob("libszt_cuda-*.so"):
-        if old != out:
-            old.unlink(missing_ok=True)
+    nvcc = _nvcc()
+    with _build_lock("kernels"):
+        if out.exists():
+            return out
+        cu, _ = _sources()
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                 "-o", str(o), str(s)] for s, o in zip(cu, objs)]
+        try:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for c in cmds]
+            logs = [p.communicate()[1] for p in procs]
+            for s, p, log in zip(cu, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"CUDA kernel build failed ({s.name}):\n{log}")
+                if verbose and log:
+                    print(f"nvcc {s.name}:\n{log}", flush=True)
+            tmp = BUILD_DIR / f"{tag}.tmp"
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"CUDA kernel link failed:\n{link.stderr}")
+            os.replace(tmp, out)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        _drop_stale("libszt_cuda-*.so", out)
     return out
 
 
@@ -102,6 +148,11 @@ def kernels() -> C.CDLL:
         lib.szt_literal_slots.argtypes = [p, i64, i64, i32, p, p, p]
         lib.szt_pack_bits.restype = i32
         lib.szt_pack_bits.argtypes = [p, i64, i32, p, p, i64, i32, p, i64, p, p]
+        lib.szt_huff_scan.restype = i32
+        lib.szt_huff_scan.argtypes = [p, i64, i64, i64, i64, p, p, p, p, p, p, i32, p, p, i32,
+                                      p, p, p, p, p, p]
+        lib.szt_huff_compact.restype = i32
+        lib.szt_huff_compact.argtypes = [p, i32, i64, p, p, p, p, p]
         _lib = lib
     return _lib
 
@@ -110,6 +161,19 @@ def kernels() -> C.CDLL:
 
 _ZSTD_LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/usr/lib/aarch64-linux-gnu",
                   "/usr/lib64", "/usr/lib", "/lib/x86_64-linux-gnu", "/usr/local/lib")
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+def _engine_sources():
+    return [ENGINE_SRC / "szt_core.cpp"], sorted((ENGINE_SRC / "szt").glob("*.hpp"))
+
+
+def engine_lib_path() -> Path:
+    src, hdr = _engine_sources()
+    return BUILD_DIR / f"libszt_host-{_hash(src + hdr, CXXFLAGS)}.so"
 
 
 def _zstd_runtime_library() -> str:
@@ -122,35 +186,52 @@ def _zstd_runtime_library() -> str:
                        "was found")
 
 
-def _prepend(var: str, path: str) -> None:
-    old = os.environ.get(var)
-    os.environ[var] = path if not old else f"{path}{os.pathsep}{old}"
+def _has_zstd_header() -> bool:
+    probe = subprocess.run([_cxx(), "-E", "-x", "c++", "-", "-o", os.devnull],
+                           input="#include <zstd.h>\n", capture_output=True, text=True)
+    return probe.returncode == 0
+
+
+def _zstd_flags() -> List[str]:
+    """Extra compiler flags for a machine without zstd's development files."""
+    if _has_zstd_header():
+        return []
+    link_dir = BUILD_DIR / "zstd_link"
+    link_dir.mkdir(parents=True, exist_ok=True)
+    link = link_dir / "libzstd.so"
+    if link.is_symlink() or link.exists():
+        link.unlink()
+    link.symlink_to(_zstd_runtime_library())
+    return ["-I", str(CSRC / "zstd"), "-L", str(link_dir)]
+
+
+def build_engine(verbose: bool = False) -> Path:
+    """Compile the host engine unless a build of the current sources exists."""
+    out = engine_lib_path()
+    if out.exists():
+        return out
+    with _build_lock("engine"):
+        if out.exists():
+            return out
+        src, _ = _engine_sources()
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_cxx(), *CXXFLAGS, "-I", str(ENGINE_SRC), *_zstd_flags(),
+               *(str(s) for s in src), "-o", str(tmp), "-lzstd"]
+        if verbose:
+            print("host engine build:", " ".join(cmd), flush=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host engine build failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+        _drop_stale("libszt_host-*.so", out)
+    return out
 
 
 def host_engine():
-    """``sz3_tpu.runtime`` with its C++ engine built (see the module note)."""
-    from sz3_tpu import runtime
+    """The port's ctypes binding of the host engine (``runtime.py``), with
+    the engine built and loaded."""
+    from . import runtime
 
-    try:
-        runtime.lib()
-    except RuntimeError as e:
-        if "zstd.h" not in str(e):
-            raise
-        link_dir = BUILD_DIR / "zstd_link"
-        link_dir.mkdir(parents=True, exist_ok=True)
-        link = link_dir / "libzstd.so"
-        if link.is_symlink() or link.exists():
-            link.unlink()
-        link.symlink_to(_zstd_runtime_library())
-        saved = {v: os.environ.get(v) for v in ("CPLUS_INCLUDE_PATH", "LIBRARY_PATH")}
-        try:
-            _prepend("CPLUS_INCLUDE_PATH", str(CSRC / "zstd"))
-            _prepend("LIBRARY_PATH", str(link_dir))
-            runtime.lib()
-        finally:
-            for v, old in saved.items():
-                if old is None:
-                    os.environ.pop(v, None)
-                else:
-                    os.environ[v] = old
+    runtime.lib()
     return runtime

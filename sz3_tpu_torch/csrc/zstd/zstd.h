@@ -1,4 +1,4 @@
-/* Declarations of the zstd functions the host engine (sz3_tpu/native) calls,
+/* Declarations of the zstd functions the host engine (csrc/engine) calls,
  * for machines that have zstd's runtime library but not its development
  * header. The signatures and constants are those of zstd's stable public API
  * (zstd.h, v1.4 and later); the engine links the installed libzstd.so.1.

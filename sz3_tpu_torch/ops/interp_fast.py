@@ -25,9 +25,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from sz3_tpu.ops.interp_plan import (K_CUBIC, K_LIN1_NEW, K_LIN1_OLD, K_LINEAR, K_QUAD1,
-                                     K_QUAD2, K_QUAD3, direction_table, level_eb)
-
+from .interp_plan import (K_CUBIC, K_LIN1_NEW, K_LIN1_OLD, K_LINEAR, K_QUAD1, K_QUAD2, K_QUAD3,
+                          direction_table, level_eb)
 from .quantize import quantize, recover
 
 

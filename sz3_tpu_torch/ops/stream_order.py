@@ -1,11 +1,14 @@
-"""Archive stream order on the device (counterpart of sz3_tpu/ops/stream_layout.py
-and of the slot->grid gather map in sz3_tpu/algos/device_encode.py:100-110).
+"""Archive stream order on the device (counterpart of sz3_tpu/ops/stream_layout.py,
+sz3_tpu/ops/stream_unlayout.py and of the slot->grid gather map in
+sz3_tpu/algos/device_encode.py:100-110).
 
 The host engine gives the dense stream-order permutation
 (``runtime.interp_order``: perm[i] = flat grid index of stream slot i). On
-the card a gather is cheap, so the stream is one indexed gather through the
-permutation, uploaded once per configuration as int32; the TPU's gather-free
-pad/transpose layout and its SENTINEL pads have no counterpart here.
+the card a gather or a scatter is cheap, so the encode's stream is one
+indexed gather through the permutation and the decode's grid one indexed
+scatter through the same permutation, uploaded once per configuration as
+int32; the TPU's gather-free pad/transpose layouts and their SENTINEL pads
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -15,9 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from sz3_tpu.config import ALGO, Config
-
-from ..build import host_engine
+from .. import runtime
+from ..config import ALGO, Config
 
 
 def _order(dims, interp_algo: int, direction: int, anchor_stride: int) -> np.ndarray:
@@ -28,18 +30,11 @@ def _order(dims, interp_algo: int, direction: int, anchor_stride: int) -> np.nda
     c.interpAlgo = interp_algo
     c.interpDirection = direction
     c.interpAnchorStride = anchor_stride
-    return host_engine().interp_order(c)
+    return runtime.interp_order(c)
 
 
-# One entry each: a simulation writes the same shape every step, and an entry
-# is large (at 512^3 the host copy holds 1 GiB, the device copy 512 MiB). The
-# encode keeps only the device copy, the decode only the host copy.
-
-@lru_cache(maxsize=1)
-def host_perm(dims, interp_algo: int, direction: int, anchor_stride: int) -> np.ndarray:
-    """The permutation on the host, for the decode's ``runtime.perm_place``."""
-    return _order(dims, interp_algo, direction, anchor_stride)
-
+# One entry: a simulation writes the same shape every step, and an entry is
+# large (512 MiB on the device at 512^3). Encode and decode share it.
 
 @lru_cache(maxsize=1)
 def device_perm(dims, interp_algo: int, direction: int, anchor_stride: int,
@@ -54,6 +49,25 @@ def to_stream(grid: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return grid.reshape(-1).index_select(0, perm)
 
 
+def from_stream(dense: torch.Tensor, perm: torch.Tensor, numel: int) -> torch.Tensor:
+    """Stream-order values -> flat grid order (the inverse of to_stream)."""
+    if dense.shape != (numel,) or perm.shape != (numel,):
+        raise ValueError(f"stream of {tuple(dense.shape)} and permutation of "
+                         f"{tuple(perm.shape)} do not fit a grid of {numel} points")
+    grid = torch.empty(numel, dtype=dense.dtype, device=dense.device)
+    grid[perm] = dense
+    return grid
+
+
 def literal_values(x: torch.Tensor, perm: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """The original values at the stream slots `slots`, in their order."""
     return x.reshape(-1).index_select(0, perm.index_select(0, slots))
+
+
+def literal_grid(values: torch.Tensor, perm: torch.Tensor, slots: torch.Tensor,
+                 numel: int) -> torch.Tensor:
+    """The inverse of literal_values: a flat grid of zeros with values[k] at
+    the grid point of stream slot slots[k]."""
+    grid = torch.zeros(numel, dtype=values.dtype, device=values.device)
+    grid[perm.index_select(0, slots)] = values
+    return grid

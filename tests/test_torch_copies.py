@@ -1,0 +1,188 @@
+"""The port keeps its own copies of what it needs from the JAX package, and
+imports nothing of it. A copy may differ from its original only where listed
+here, with the reason; everything else is held equal."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import sz3_tpu.config as jconfig
+import sz3_tpu.ops.interp_plan as jplan
+import sz3_tpu.runtime as jruntime
+import sz3_tpu.stats as jstats
+import sz3_tpu_torch.config as pconfig
+import sz3_tpu_torch.ops.interp_plan as pplan
+import sz3_tpu_torch.runtime as pruntime
+import sz3_tpu_torch.stats as pstats
+from sz3_tpu.ops import interp_fast as jif
+from sz3_tpu_torch.ops import interp_fast as pif
+
+ROOT = Path(__file__).resolve().parents[1]
+NATIVE = ROOT / "sz3_tpu" / "native"
+ENGINE = ROOT / "sz3_tpu_torch" / "csrc" / "engine"
+
+# engine sources that differ from their originals, and why
+ENGINE_DIFFERS = {
+    "szt_core.cpp": "adds szt_open_packed64 (the code table exported as uint64) at the end",
+    "szt/bridge.hpp": "interp_open_packed and nopred_open_packed take the code width from "
+                      "the caller's vector",
+    "szt/huffman.hpp": "export_loaded_codes is a template on the code width (32 or 64 bits)",
+}
+
+
+def _configs(module):
+    """A seeded set of configs built from `module`'s classes."""
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(40):
+        nd = int(rng.integers(1, 5))
+        dims = tuple(int(d) for d in rng.integers(1, 300, nd))
+        c = module.Config(dims=dims)
+        c.cmprAlgo = module.ALGO(int(rng.choice([int(a) for a in module.ALGO])))
+        c.errorBoundMode = module.EB(int(rng.choice([int(e) for e in module.EB])))
+        c.absErrorBound = float(10.0 ** rng.integers(-8, 0))
+        c.relErrorBound = float(10.0 ** rng.integers(-8, 0))
+        c.psnrErrorBound = float(rng.uniform(20, 120))
+        c.l2normErrorBound = float(rng.uniform(0, 5))
+        c.interpAlgo = module.INTERP_ALGO(int(rng.integers(0, 2)))
+        c.interpDirection = int(rng.integers(0, 6))
+        c.quantbinCnt = int(2 ** rng.integers(4, 20))
+        c.blockSize = int(rng.integers(2, 17))
+        c.lorenzo, c.lorenzo2 = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
+        c.regression, c.openmp = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
+        c.dataType = module.DataType(int(rng.choice([int(d) for d in module.DataType])))
+        out.append(c)
+    return out
+
+
+@pytest.mark.parametrize("i", range(40))
+def test_config_bytes_and_fields_equal(i):
+    cj, cp = _configs(jconfig)[i], _configs(pconfig)[i]
+    blob = cj.save()
+    assert cp.save() == blob
+    assert cp.size_est() == cj.size_est() and cp.num == cj.num and cp.N == cj.N
+    lj, nj = jconfig.Config.load(blob + b"tail")
+    lp, np_ = pconfig.Config.load(blob + b"tail")
+    assert nj == np_
+    for name in vars(lj):
+        a, b = getattr(lj, name), getattr(lp, name)
+        assert (int(a) if hasattr(a, "name") else a) == (int(b) if hasattr(b, "name") else b), name
+    assert lp.save() == lj.save()
+
+
+def test_config_constants_equal():
+    assert pconfig.SZ3_MAGIC_NUMBER == jconfig.SZ3_MAGIC_NUMBER
+    assert pconfig.version_int((3, 3, 2)) == jconfig.version_int((3, 3, 2))
+    assert pconfig.version_str(0x030302) == jconfig.version_str(0x030302)
+    for enum in ("ALGO", "EB", "INTERP_ALGO", "DataType"):
+        assert {m.name: int(m) for m in getattr(pconfig, enum)} == \
+            {m.name: int(m) for m in getattr(jconfig, enum)}
+
+
+@pytest.mark.parametrize("name", ["config.py", "ops/interp_plan.py"])
+def test_python_copies_are_verbatim(name):
+    assert (ROOT / "sz3_tpu_torch" / name).read_bytes() == (ROOT / "sz3_tpu" / name).read_bytes()
+
+
+@pytest.mark.parametrize("dims,algo,direction", [((40, 33, 27), 1, 0), ((129, 129), 0, 1),
+                                                 ((33, 34, 35, 20), 1, 5), ((4000,), 1, 0)])
+def test_plan_constants_equal(dims, algo, direction):
+    kw = dict(interp_algo=algo, direction=direction, anchor_stride=[4096, 128, 32, 16][len(dims) - 1],
+              alpha=1.25, beta=2.0, eb=1e-3, quantbin_cnt=65536)
+    pj, pp = jif.build_fast_plan(dims, **kw), pif.build_fast_plan(dims, **kw)
+    assert (pj.dims, pj.anchor_stride, pj.base_eb, pj.radius) == \
+        (pp.dims, pp.anchor_stride, pp.base_eb, pp.radius)
+    assert len(pj.passes) == len(pp.passes) > 0
+    for a, b in zip(pj.passes, pp.passes):
+        assert (a.level, a.eb, a.dd, a.p, a.shape_in, a.shape_out) == \
+            (b.level, b.eb, b.dd, b.p, b.shape_in, b.shape_out)
+        assert np.array_equal(a.kind, b.kind)
+    for args in ((dims[0], 2, 32, True, False), (dims[-1], 4, 32, False, True)):
+        tj, tp = jplan.direction_table(*args), pplan.direction_table(*args)
+        assert all(np.array_equal(a, b) for a, b in zip(tj, tp)) and len(tj) == len(tp)
+    for level in range(1, 6):
+        assert pplan.level_eb(1e-3, level, 1.25, 2.0) == jplan.level_eb(1e-3, level, 1.25, 2.0)
+
+
+def _engine_files():
+    return sorted(str(f.relative_to(ENGINE)) for f in ENGINE.rglob("*") if f.is_file())
+
+
+def test_engine_copy_is_complete():
+    want = ["szt_core.cpp"] + sorted(f"szt/{f.name}" for f in (NATIVE / "szt").glob("*.hpp"))
+    assert _engine_files() == sorted(want)
+    assert set(ENGINE_DIFFERS) <= set(want)
+
+
+@pytest.mark.parametrize("name", ["szt_core.cpp"] + sorted(
+    f"szt/{f.name}" for f in (NATIVE / "szt").glob("*.hpp")))
+def test_engine_source_equals_original(name):
+    mine, orig = (ENGINE / name).read_bytes(), (NATIVE / name).read_bytes()
+    if name not in ENGINE_DIFFERS:
+        assert mine == orig
+        return
+    assert mine != orig, f"{name} no longer differs: take it off the list"
+    if name == "szt_core.cpp":                           # a pure addition
+        assert mine.startswith(orig.rstrip(b"\n"))
+        assert b"szt_open_packed64" in mine[len(orig) - 1:] and b"szt_open_packed64" not in orig
+    else:                                                # a few lines, nothing removed elsewhere
+        a, b = orig.decode().splitlines(), mine.decode().splitlines()
+        changed = len(set(a) ^ set(b))
+        assert 0 < changed <= 24, changed
+
+
+def test_runtime_binds_every_engine_function_of_the_original():
+    import re
+    pat = re.compile(r"szt_\w+")
+    jnames = set(pat.findall((ROOT / "sz3_tpu" / "runtime.py").read_text()))
+    pnames = set(pat.findall((ROOT / "sz3_tpu_torch" / "runtime.py").read_text()))
+    assert jnames <= pnames and pnames - jnames == {"szt_open_packed64"}
+    public = [n for n in dir(jruntime) if not n.startswith("_") and callable(getattr(jruntime, n))]
+    assert all(hasattr(pruntime, n) for n in public)
+
+
+@pytest.mark.parametrize("dtype,algo", [(np.float32, "INTERP"), (np.float64, "INTERP"),
+                                        (np.float32, "INTERP_LORENZO"),
+                                        (np.float32, "LORENZO_REG"), (np.int32, "INTERP")])
+def test_engines_write_the_same_payload(dtype, algo):
+    rng = np.random.default_rng(5)
+    x = (np.cumsum(rng.standard_normal((30, 31, 32)), axis=-1) * 10).astype(dtype)
+    payloads = []
+    for cfg, rt in ((jconfig, jruntime), (pconfig, pruntime)):
+        c = cfg.Config(dims=x.shape, cmprAlgo=cfg.ALGO[algo], absErrorBound=0.5)
+        c.dataType = rt.np_dtype_id(x)
+        payloads.append(rt.compress_payload(c, x, 4 * x.nbytes + 4096))
+        out = rt.decompress_payload(c, payloads[-1])
+        assert np.abs(out.astype(np.float64) - x).max() <= 0.5
+    assert payloads[0] == payloads[1]
+
+
+def test_open_packed_exports_64_bit_codes():
+    """The port's open_packed gives uint64 codes equal to the original's
+    uint32 ones where those exist."""
+    rng = np.random.default_rng(6)
+    x = (np.cumsum(rng.standard_normal((30, 31, 32)), axis=-1) * 0.1).astype(np.float32)
+    outs = []
+    for cfg, rt in ((jconfig, jruntime), (pconfig, pruntime)):
+        c = cfg.Config(dims=x.shape, cmprAlgo=cfg.ALGO.INTERP, absErrorBound=1e-3)
+        c.interpAnchorStride = 32
+        payload = rt.compress_payload(c, x, 4 * x.nbytes)
+        outs.append(rt.open_packed(c, payload, np.float32))
+    (bj, nj, oj, cj, lj, kj, uj), (bp, np_, op, cp, lp, kp, up) = outs
+    assert cj.dtype == np.uint32 and cp.dtype == np.uint64
+    assert (bj, nj, oj, kj) == (bp, np_, op, kp)
+    assert np.array_equal(cj.astype(np.uint64), cp) and np.array_equal(lj, lp)
+    assert np.array_equal(uj, up)
+
+
+def test_stats_copy():
+    x = np.linspace(-3, 7, 1000).reshape(10, 10, 10)
+    for mode in pconfig.EB:
+        cj = jconfig.Config(dims=x.shape, errorBoundMode=jconfig.EB(int(mode)), absErrorBound=0.1,
+                            relErrorBound=1e-3, psnrErrorBound=80.0, l2normErrorBound=0.5)
+        cp = pconfig.Config(dims=x.shape, errorBoundMode=mode, absErrorBound=0.1,
+                            relErrorBound=1e-3, psnrErrorBound=80.0, l2normErrorBound=0.5)
+        jstats.cal_abs_error_bound(cj, x)
+        pstats.cal_abs_error_bound(cp, x)
+        assert cp.absErrorBound == cj.absErrorBound and int(cp.errorBoundMode) == 0

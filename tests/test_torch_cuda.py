@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import sz3_tpu_torch as szp
-from sz3_tpu.config import ALGO, Config
+from sz3_tpu_torch import ALGO, Config
 from sz3_tpu_torch.algos import device_encode as tde
+from sz3_tpu_torch.algos.huffman import build_table
+from sz3_tpu_torch.ops import entropy_decode as tdec
 from sz3_tpu_torch.ops import entropy_device as ted
 
 pytestmark = pytest.mark.cuda
@@ -96,14 +98,130 @@ def test_launches_count_and_no_cpu_fallback(dev):
                                            ((33, 34, 35, 20), 1, 1e-3), ((20, 20, 20), 1, 1e-3),
                                            ((48, 40, 40), 1, 1e-6)])
 def test_archives_match_host_engine(dev, shape, algo, eb):
-    import sz3_tpu as szt
+    # the port's own engine: a machine with a card need not be able to build
+    # the JAX package's (tests/test_torch_copies.py holds the two equal)
+    from sz3_tpu_torch import runtime
 
     rng = np.random.default_rng(1)
     x = (np.cumsum(rng.standard_normal(shape).astype(np.float32), axis=-1) * 0.1)
     conf = Config(dims=shape, cmprAlgo=ALGO.INTERP, absErrorBound=eb, interpAlgo=algo)
     blob = szp.compress(x, conf, device=dev)
-    assert blob == szt.compress(x, conf, backend="native")
+    c, cap = szp.api.archive_conf(x, conf)
+    assert blob == szp.pack_archive(c, runtime.compress_payload(c, x, cap))
     out, _ = szp.decompress(blob, device=dev)
     assert out.device.type == "cuda"
-    ref, _ = szt.decompress(blob)
+    ref = runtime.decompress_payload(*szp.open_archive(blob))
     assert np.array_equal(out.cpu().numpy().view(np.int32), ref.view(np.int32))
+
+
+# ---- the decode kernels (K4 huff_scan, K5 huff_compact) ---------------------------
+
+DEC_RADIUS = 64
+
+
+def _fib(k):
+    f = [1, 1]
+    while len(f) < k:
+        f.append(f[-1] + f[-2])
+    return f
+
+
+def _coded_stream(freq, syms, lo=1):
+    """A Huffman stream of the symbols `syms` under the reference tree of the
+    counts `freq` (freq[s] = count of symbol lo + s; the stream itself need
+    not follow them): (bits, exported codes, lens, offset, tree bytes)."""
+    freq = np.asarray(list(freq) + [0], dtype=np.uint64)
+    codes, lens, tree = build_table(lo, freq)
+    tc = np.zeros(ted.table_len(DEC_RADIUS), np.int64)
+    tl = np.zeros(ted.table_len(DEC_RADIUS), np.int32)
+    s = np.arange(lo, lo + freq.size)
+    tc[s + 1] = codes.view(np.int64)
+    tl[s + 1] = lens
+    bins = torch.from_numpy(np.asarray(syms, np.int32))
+    total_bits = int(tl[np.asarray(syms) + 1].sum())
+    words = ted.pack_bits_plain(bins, torch.from_numpy(tc), torch.from_numpy(tl), DEC_RADIUS,
+                                total_bits)
+    bits = words.numpy().view(np.uint32).byteswap().tobytes()[:(total_bits + 7) // 8]
+    return bits, codes, lens, lo, tree
+
+
+def _decode_cases():
+    rng = np.random.default_rng(21)
+    flat = [1000, 600, 350, 200, 120, 70, 40, 20, 10, 5, 2, 1]
+    return {
+        # a stream of 3 windows (the JAX package wants 64)
+        "under_64_windows": (flat, rng.integers(0, len(flat), 900) + 1),
+        # fewer bits than one window
+        "one_window": (flat, rng.integers(0, len(flat), 40) + 1),
+        # counts 2^k: code lengths 1, 2, 3, ..., and the 1-bit code is most of the stream
+        "shortest_code_1_bit": ([2 ** k for k in range(20, 0, -1)],
+                                np.minimum(rng.geometric(0.5, 30000), 20)),
+        # Fibonacci counts: a tree 33 levels deep; every symbol in the stream
+        "fibonacci_33_levels": (_fib(34), rng.integers(0, 34, 20000) + 1),
+        # codes of up to 63 bits
+        "fibonacci_63_levels": (_fib(64), rng.integers(0, 64, 20000) + 1),
+        # eight codes of 3 bits: a walk that starts off the symbol lattice
+        # never synchronises, so each validation pass proves one more window
+        "never_synchronises": ([5] * 8, rng.integers(0, 8, 6000) + 1),
+    }
+
+
+def _two_passes(bits, codes, lens, lo, device, scan):
+    """Zeroed scan state after one speculative pass of every window by `scan`,
+    and again after a chained rescan of the windows that pass leaves bad."""
+    total_bits = len(bits) * 8
+    tables = tdec.build_decode_tables(codes, lens, lo, device)
+    stream = tdec.upload_bytes(bits, device, tdec.PAD_BYTES)
+    nwin = -(-total_bits // tdec.W_BITS)
+    state = tdec.new_scan_state(nwin, tables.cap, device)
+    for s in state:
+        s.zero_()
+    idx = torch.arange(nwin, dtype=torch.int32, device=device)
+    starts = torch.zeros(nwin, dtype=torch.int32, device=device)
+    starts[0] = tdec.RUN_BITS
+    scan(stream, total_bits, tables, idx, starts, state)
+    first = tdec.ScanState(*(s.clone() for s in state))
+    wstart = idx.to(torch.int64) * tdec.W_BITS
+    bad, want = tdec.bad_windows(state, wstart)
+    idx = torch.nonzero(bad).reshape(-1)
+    starts = (want[idx] - wstart[idx] + tdec.RUN_BITS).to(torch.int32)
+    scan(stream, total_bits, tables, idx.to(torch.int32), starts, state, chain=True)
+    return first, state
+
+
+@pytest.mark.parametrize("name", list(_decode_cases()))
+def test_scan_and_compact_match_plain(dev, name):
+    freq, syms = _decode_cases()[name]
+    bits, codes, lens, lo, _ = _coded_stream(freq, syms)
+    k1, k = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows)
+    p1, p = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows_plain)
+    for a, b in zip((*k1, *k), (*p1, *p)):
+        assert torch.equal(a, b)
+    n64 = k.nout.to(torch.int64)
+    off = torch.cumsum(n64, 0) - n64
+    count = int(n64.sum())
+    assert torch.equal(tdec.compact_windows(k.syms, k.nskip, k.nout, off, count),
+                       tdec.compact_plain(k.syms, k.nskip, k.nout, off, count))
+    before = (tdec.scan_windows.launches, tdec.compact_windows.launches)
+    stats = {}
+    dense = tdec.decode_stream(bits, len(syms), codes, lens, lo, dev, stats)
+    assert dense.device.type == "cuda"
+    assert np.array_equal(dense.cpu().numpy(), syms)
+    assert tdec.scan_windows.launches == before[0] + stats["passes"]
+    assert tdec.compact_windows.launches == before[1] + 1
+
+
+def test_f64_and_edge_archives_decode_on_the_card(dev):
+    from sz3_tpu_torch import runtime
+
+    rng = np.random.default_rng(6)
+    cases = [(np.cumsum(rng.standard_normal((40, 41, 42)), axis=-1) * 0.1, 1e-6),
+             (np.zeros((24, 20, 18), np.float32), 1e-3),
+             ((np.cumsum(rng.standard_normal((20, 20, 20)), axis=2) * 0.1).astype(np.float32),
+              1e-3)]
+    for x, eb in cases:
+        blob = szp.compress(x, Config(cmprAlgo=ALGO.INTERP, absErrorBound=eb), device=dev)
+        conf, payload = szp.open_archive(blob)
+        ref = runtime.decompress_payload(conf, payload)
+        out, _ = szp.decompress(blob, device=dev)
+        assert out.cpu().numpy().tobytes() == ref.tobytes()

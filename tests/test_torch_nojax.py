@@ -1,5 +1,6 @@
-"""The port runs without jax, as on a machine that has none, and never
-falls back to the CPU when a CUDA device is asked for."""
+"""The port runs without jax and without the JAX package, as on a machine
+that has neither, and never falls back to the CPU when a CUDA device is
+asked for."""
 
 import re
 import subprocess
@@ -11,13 +12,14 @@ import pytest
 import torch
 
 import sz3_tpu_torch as szp
-from sz3_tpu.config import Config
+from sz3_tpu_torch import Config
 
 ROOT = Path(__file__).resolve().parents[1]
 
 _ROUNDTRIP = r"""
 import sys
 sys.modules["jax"] = None        # any import of jax now raises ImportError
+sys.modules["sz3_tpu"] = None    # and so does any import of the JAX package
 import numpy as np
 import sz3_tpu_torch as szp
 rng = np.random.default_rng(0)
@@ -25,7 +27,12 @@ x = (np.cumsum(rng.standard_normal((40, 36, 33)).astype(np.float32), axis=-1) * 
 blob = szp.compress(x, szp.Config(absErrorBound=1e-3), device="cpu")
 out, conf = szp.decompress(blob, device="cpu")
 assert float(np.abs(out.numpy() - x).max()) <= 1e-3
-assert sys.modules["jax"] is None
+x64 = x.astype(np.float64)
+blob64 = szp.compress(x64, szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-3), device="cpu")
+out64, _ = szp.decompress(blob64, device="cpu")
+assert out64.numpy().dtype == np.float64 and float(np.abs(out64.numpy() - x64).max()) <= 1e-3
+assert sys.modules["jax"] is None and sys.modules["sz3_tpu"] is None
+assert not [m for m in sys.modules if m.startswith("sz3_tpu.")]
 print("ok", len(blob))
 """
 
@@ -38,10 +45,11 @@ def test_roundtrip_without_jax():
 
 
 def test_import_leaves_jax_alone_when_installed():
-    """Importing the port first does not import jax, even where jax is
-    installed (sz3_tpu's compile-cache setup is opted out for that import)."""
+    """Importing the port imports neither jax nor the JAX package, even where
+    both are installed, and leaves the environment as it was."""
     code = ("import sys, os; import sz3_tpu_torch; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'sz3_tpu' not in sys.modules, 'sz3_tpu imported'; "
             "assert 'SZT_COMP_CACHE' not in os.environ")
     env = {k: v for k, v in __import__("os").environ.items() if k != "SZT_COMP_CACHE"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -58,10 +66,15 @@ def test_no_jax_import_in_the_port():
 
 
 def test_smoke_names_no_module_of_the_jax_package():
-    """chip_smoke.py reaches the host engine and the container only through
-    the port."""
+    """Neither chip_smoke.py nor any file of the port imports the JAX
+    package; the environment trick that once hid its jax import is gone."""
     pat = re.compile(r"^\s*(import|from)\s+sz3_tpu(\.|\s|$)", re.M)
-    assert not pat.search((ROOT / "chip_smoke.py").read_text())
+    files = sorted((ROOT / "sz3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        assert not pat.search(text), f"{f} imports sz3_tpu"
+        assert "SZT_COMP_CACHE" not in text, f
 
 
 def test_cuda_request_without_a_card_raises():
