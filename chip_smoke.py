@@ -10,12 +10,15 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      the encode kernels on the stream-order bins of the 256^3 field and on
      synthetic streams (zeros, SENTINELs, symbols across the quantizer's
      whole range, and a Fibonacci histogram whose Huffman codes exceed 32
-     bits); the decode kernels on the 256^3 archive's Huffman stream and on
-     synthetic streams (codes of up to 63 bits, a shortest code of 1 bit,
-     fewer than 64 windows, a code that never synchronises). Their times
-     (CUDA events, after a warm-up, in the order plain, kernel, kernel,
-     plain), each kernel's bound, and the one PyTorch call that computes
-     the same function where there is one;
+     bits); the decode kernels (the count phase's first pass and chained
+     rescan, and the write phase) on the 256^3 archive's Huffman stream and
+     on synthetic streams (codes of up to 63 bits, a shortest code of 1
+     bit, fewer than 64 windows, a code that never synchronises). Their
+     times (CUDA events, after a warm-up, in the order plain, kernel,
+     kernel, plain), each kernel's bound, the decode kernels also with the
+     L2 cache flushed before each launch, and every decode launch of one
+     256^3 decompress summed. No PyTorch call computes any of the four
+     functions;
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
      from radius, a constant stream, f64, codes over 32 bits) compressed and
      decompressed on the card, archives sha256-equal to the host engine's
@@ -25,8 +28,9 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      nyx_like(512), and an f64 round trip at 256^3. The archives must be
      sha256-equal to the host engine's, the decodes bit-equal to its decode
      and within the bound, and every kernel launched. Wall times, where the
-     encode and decode time goes, and the card's busy time over one warm
-     encode and decode, split by kind (torch.profiler).
+     encode and decode time goes, the warm decode's peak device memory, and
+     the card's busy time over one warm encode and decode, split by kind
+     (torch.profiler).
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -47,6 +51,10 @@ EB = 1e-3
 SIZES = (256, 512)
 REPS = 20
 PLAIN_SCAN_REPS = 1        # the plain scan is thousands of small launches
+SPIN_CYCLES = 40_000_000   # of torch.cuda._sleep: some 20 ms on an H100
+# the per-window symbol rows of the decode before its write phase, MB, as
+# measured when they existed (PERF.md): they are gone
+ROWS_MB = {256: 132, 512: 1400}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # the kernels are 32-bit integer work outside the tensor cores; the float32
 # rate outside the tensor cores stands in as their peak
@@ -127,8 +135,13 @@ def main() -> int:
         return out, time.perf_counter() - t0
 
     def event_ms(fn, reps=REPS):
+        """ms per call between two CUDA events. The calls are queued behind a
+        kernel that spins for some 20 ms, so that the host's share of a call
+        (checks, allocation) is done before the card gets to it; a wrapper
+        that reads a result back waits for the card all the same."""
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -183,6 +196,21 @@ def main() -> int:
                 total += e - max(s, end)
                 end = e
         return total / 1e3, wall * 1e3, len(events), kinds
+
+    def device_ms(fn, reps=10):
+        """Summed device time of everything one call of fn runs on the card
+        (kernels, fills, copies), from torch.profiler: without the time the
+        card waits for the host inside a wrapper that reads a result back."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / reps
 
     def max_abs_diff(a, b) -> int:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -286,9 +314,14 @@ def main() -> int:
     k2_ms, k2_plain_ms, k2_runs = paired_ms(
         lambda: ed.pack_bits(stream, tc, tl, radius, total_bits),
         lambda: ed.pack_bits_plain(stream, tc, tl, radius, total_bits))
-    print(f"K1 hist_literals at 256^3: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
-          f"(plain,kernel,kernel,plain = {[round(v, 3) for v in k1_runs]})", flush=True)
-    print(f"K2+K3 pack_bits at 256^3: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
+    k1_dev_ms = device_ms(lambda: ed.hist_and_literals(stream, radius))
+    k2_dev_ms = device_ms(lambda: ed.pack_bits(stream, tc, tl, radius, total_bits))
+    print(f"K1 hist_literals at 256^3: kernel {k1_ms:.3f} ms a call, of which {k1_dev_ms:.3f} ms "
+          f"on the card (the wrapper reads a count back between its launches), plain "
+          f"{k1_plain_ms:.3f} ms (plain,kernel,kernel,plain = {[round(v, 3) for v in k1_runs]})",
+          flush=True)
+    print(f"K2+K3 pack_bits at 256^3: kernel {k2_ms:.3f} ms a call, of which {k2_dev_ms:.3f} ms "
+          f"on the card (the wrapper reads the total back), plain {k2_plain_ms:.3f} ms "
           f"(plain,kernel,kernel,plain = {[round(v, 3) for v in k2_runs]})", flush=True)
     nlit = ed.hist_and_literals(stream, radius)[1].numel()
     k1_bound = bound(4 * num + 4 * ed.table_len(radius) + 4 * nlit, 4 * num)
@@ -297,7 +330,8 @@ def main() -> int:
     del x, stream, syn_streams, tables, tc, tl
     torch.cuda.empty_cache()
 
-    # the decode kernels: K4 huff_scan and K5 huff_compact
+    # the decode kernels: huff_scan (K4, the count phase) and huff_write (the
+    # write phase, which does what K5's compaction did)
     def coded_stream(freq, syms, lo=1, rad=64):
         """The Huffman stream of the symbols `syms` under the reference tree
         of the counts `freq` (freq[s] = count of symbol lo + s; the stream
@@ -331,7 +365,7 @@ def main() -> int:
         per pass, seconds in the scans, seconds in the validations)."""
         scan = scan or dec.scan_windows
         nwin = -(-total_bits // dec.W_BITS)
-        state = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, tables.cap, dev)))
+        state = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, dev)))
         idx, starts = first_pass_args(nwin)
         wstart = idx.to(torch.int64) * dec.W_BITS
         redo, scan_s, check_s = [], 0.0, 0.0
@@ -376,7 +410,11 @@ def main() -> int:
         "synthetic, never synchronises": coded_stream([5] * 32,
                                                       rng.integers(0, 32, 20_000) + 1),
     }
-    k4_err = k5_err = 0
+    def runs_of(nout):
+        n64 = nout.to(torch.int64)
+        return torch.cumsum(n64, 0) - n64, int(n64.sum())
+
+    k4_err = kw_err = 0
     for name, (bits, codes, lens, lo, want_syms) in dec_cases.items():
         total = len(bits) * 8
         tabs = dec.build_decode_tables(codes, lens, lo, dev)
@@ -386,9 +424,9 @@ def main() -> int:
         chained = name != "256^3 stream"
         states = []
         for scan in (dec.scan_windows, dec.scan_windows_plain):
-            st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, tabs.cap, dev)))
+            st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, dev)))
             scan(stream_t, total, tabs, *first_pass_args(nwin), st)
-            first = [t.clone() for t in st]
+            first = dec.ScanState(*(t.clone() for t in st))
             bad, want = dec.bad_windows(st, wstart)
             if chained:
                 scan(stream_t, total, tabs, *dec.rescan_args(bad, want, wstart), st, chain=True)
@@ -398,20 +436,25 @@ def main() -> int:
                                                      (*states[1][0], *states[1][1])))
         check(err == 0, f"K4 {name}: differs from its plain version (max abs diff {err})")
         k4_err = max(k4_err, err)
-        st = states[0][1]
-        n64 = st.nout.to(torch.int64)
-        off = torch.cumsum(n64, 0) - n64
-        ck = dec.compact_windows(st.syms, st.nskip, st.nout, off, int(n64.sum()))
-        cp = dec.compact_plain(st.syms, st.nskip, st.nout, off, int(n64.sum()))
-        err = max_abs_diff(ck, cp)
-        check(err == 0, f"K5 {name}: differs from its plain version (max abs diff {err})")
-        k5_err = max(k5_err, err)
+        # the write phase on the runs of the first pass (mis-speculated
+        # windows and all: the function is defined by its arguments) and on
+        # those the rescan leaves
+        for st in states[0][:2]:
+            off, n_all = runs_of(st.nout)
+            wk = dec.write_windows(stream_t, total, tabs, st.entry, st.nout, off, n_all)
+            wp = dec.write_windows_plain(stream_t, total, tabs, st.entry, st.nout, off, n_all)
+            torch.cuda.synchronize()
+            err = max_abs_diff(wk, wp)
+            check(err == 0 and torch.equal(wk, wp),
+                  f"huff_write {name}: differs from its plain version (max abs diff {err})")
+            kw_err = max(kw_err, err)
         what = (f"a first pass and a chained rescan of its {states[0][2]} bad windows, which "
                 f"leaves {states[0][3]}" if chained
                 else f"a first pass, which leaves {states[0][2]} bad windows")
-        print(f"K4, K5 {name}: bit-equal to plain over {what} ({nwin} windows, codes of "
-              f"{int(lens[lens > 0].min())}-{int(lens.max())} bits, row length {tabs.cap})",
-              flush=True)
+        print(f"K4 huff_scan, huff_write {name}: bit-equal to plain over {what}, and the "
+              f"write phase on both sets of runs ({nwin} windows, codes of "
+              f"{int(lens[lens > 0].min())}-{int(lens.max())} bits, {tabs.sub_len.numel()} second-table "
+              f"entries)", flush=True)
         if want_syms is not None:
             stats = {}
             dense = dec.decode_stream(bits, len(want_syms), codes, lens, lo, dev, stats)
@@ -420,9 +463,16 @@ def main() -> int:
             print(f"  decode_stream == the {len(want_syms)} symbols in {stats['passes']} passes "
                   f"over {stats['redo_counts']} windows", flush=True)
             del dense
-        del states, st, ck, cp
+        del states, st, wk, wp
         stamp(f"decode kernels, {name}")
     check(int(dec_cases["synthetic, codes up to 63 bits"][2].max()) == 63, "no 63-bit code")
+    # symbols are whole int32 values, not fields of a table entry
+    bits, codes, lens, lo, want_syms = dec_cases["synthetic, under 64 windows"]
+    far = (1 << 24) - 3
+    dense = dec.decode_stream(bits, len(want_syms), codes, lens, far, dev)
+    check(np.array_equal(dense.cpu().numpy(), want_syms - lo + far),
+          "huff_write, symbols from 2^24 on: not the stream's symbols")
+    print("huff_write, symbols from 2^24 on: decode_stream == the symbols", flush=True)
 
     stamp("encode kernels and decode cases done")
     total256 = len(bits256) * 8
@@ -430,41 +480,113 @@ def main() -> int:
     stream_t = dec.upload_bytes(bits256, dev, dec.PAD_BYTES)
     nwin256 = -(-total256 // dec.W_BITS)
     idx_all, starts_all = first_pass_args(nwin256)
-    st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin256, tabs.cap, dev)))
+    st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin256, dev)))
     k4_ms, k4_plain_ms, k4_runs = paired_ms(
         lambda: dec.scan_windows(stream_t, total256, tabs, idx_all, starts_all, st),
         lambda: dec.scan_windows_plain(stream_t, total256, tabs, idx_all, starts_all, st),
         plain_reps=PLAIN_SCAN_REPS)
     decoded = int((st.nskip.to(torch.int64) + st.nout).sum())
-    table_bytes = sum(t.numel() * t.element_size() for t in tabs[:5])
-    k4_bound = bound(len(bits256) + table_bytes + 8 * nwin256 + 16 * nwin256 + 4 * decoded,
-                     24 * decoded)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # count phase: the stream, the length tables, idx and starts read; four
+    # int32 per window written. Operations: a step of huff_scan.cu's
+    # count_until is 18 integer instructions (the index shift, the table
+    # load, two for the short-code test, four for the group's fields and its
+    # test, two selects, two adds, four in the reader's skip, the loop test)
+    # and takes 1.7 symbols at this stream's 5.5 bits a symbol: 11 a symbol
+    k4_bound = bound(len(bits256) + nbytes(tabs.root, tabs.sub_len, tabs.deep_key, tabs.deep_len)
+                     + 8 * nwin256 + 16 * nwin256, 11 * decoded)
     st, redo256, _, _ = scan_to_end(stream_t, total256, tabs)
     nout, off = dec.owned_runs(st, count256)
-    k5_ms, k5_plain_ms, k5_runs = paired_ms(
-        lambda: dec.compact_windows(st.syms, st.nskip, nout, off, count256),
-        lambda: dec.compact_plain(st.syms, st.nskip, nout, off, count256))
-    k5_bound = bound(8 * count256 + 16 * nwin256, 2 * count256)
-    col = torch.arange(tabs.cap, device=dev)[None, :]
-    mask = (col >= st.nskip[:, None]) & (col < (st.nskip + nout)[:, None])
-    check(torch.equal(torch.masked_select(st.syms, mask),
-                      dec.compact_windows(st.syms, st.nskip, nout, off, count256)),
-          "torch.masked_select does not compute K5's function")
-    k5_lib_ms = event_ms(lambda: torch.masked_select(st.syms, mask))
+    kw_ms, kw_plain_ms, kw_runs = paired_ms(
+        lambda: dec.write_windows(stream_t, total256, tabs, st.entry, nout, off, count256),
+        lambda: dec.write_windows_plain(stream_t, total256, tabs, st.entry, nout, off, count256),
+        plain_reps=PLAIN_SCAN_REPS)
+    # write phase: the stream, the tables, entry, nout (int32) and off (int64)
+    # read; one int32 per symbol written
+    kw_bound = bound(len(bits256) + nbytes(tabs.root, tabs.l1_sym, tabs.sub_len, tabs.sub_sym,
+                                           tabs.deep_key, tabs.deep_sym, tabs.deep_len)
+                     + 16 * nwin256 + 4 * count256, 24 * count256)
+
+    # the same two launches with the L2 cache flushed before each: the
+    # 11.6 MB stream fits the 50 MB L2, and back-to-back launches find it there
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def cold_ms(fn, reps=10):
+        ms = 0.0
+        for _ in range(reps):
+            torch.cuda._sleep(SPIN_CYCLES // 10)        # the host gets ahead of the card
+            flush.fill_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            ms += start.elapsed_time(stop)
+        return ms / reps
+
+    st_cold = dec.ScanState(*(t.clone() for t in st))
+    k4_cold_ms = cold_ms(lambda: dec.scan_windows(stream_t, total256, tabs, idx_all, starts_all,
+                                                  st_cold))
+    kw_cold_ms = cold_ms(lambda: dec.write_windows(stream_t, total256, tabs, st.entry, nout, off,
+                                                   count256))
+    del flush, st_cold
+
+    def decode_launches_ms():
+        """Every decode kernel launch of one decode_stream of the 256^3
+        stream: each count pass with the arguments and the scan state it had,
+        timed alone (the state is copied back before each launch, and the
+        time of the copies alone is taken off), then the write phase:
+        (summed ms, ms per launch)."""
+        state = dec.new_scan_state(nwin256, dev)
+        idx, starts = idx_all, starts_all
+        wstart = idx_all.to(torch.int64) * dec.W_BITS
+        passes = []
+        while True:
+            passes.append((idx, starts, bool(passes), [t.clone() for t in state]))
+            dec.scan_windows(stream_t, total256, tabs, idx, starts, state, chain=passes[-1][2])
+            bad, want = dec.bad_windows(state, wstart)
+            if int(bad.sum()) == 0:
+                break
+            idx, starts = dec.rescan_args(bad, want, wstart)
+        per = []
+        for p_idx, p_starts, chain, before in passes:
+            def restore():
+                for t, b in zip(state, before):
+                    t.copy_(b)
+
+            def one_pass():
+                restore()
+                dec.scan_windows(stream_t, total256, tabs, p_idx, p_starts, state, chain=chain)
+
+            per.append(max(0.0, event_ms(one_pass) - event_ms(restore)))
+        per.append(kw_ms)
+        return sum(per), per
+
+    family_ms, family_per = decode_launches_ms()
     print(f"K4 huff_scan, first pass over the 256^3 stream ({nwin256} windows, {decoded} "
-          f"symbols decoded, row length {tabs.cap}): kernel {k4_ms:.3f} ms, plain "
-          f"{k4_plain_ms:.3f} ms ({PLAIN_SCAN_REPS} repetition of the plain version per "
-          f"reading; plain,kernel,kernel,plain = {[round(v, 3) for v in k4_runs]}), bound "
+          f"symbols counted, runway {dec.RUN_BITS} bits): kernel {k4_ms:.3f} ms ({k4_cold_ms:.3f} "
+          f"ms with the L2 flushed before each launch), plain {k4_plain_ms:.3f} ms "
+          f"({PLAIN_SCAN_REPS} repetition of the plain version per reading; "
+          f"plain,kernel,kernel,plain = {[round(v, 3) for v in k4_runs]}), bound "
           f"{k4_bound[0]:.4f} ms by {k4_bound[1]}; no PyTorch call decodes a Huffman stream",
           flush=True)
-    print(f"K5 huff_compact at 256^3 ({count256} symbols): kernel {k5_ms:.3f} ms, plain "
-          f"{k5_plain_ms:.3f} ms (plain,kernel,kernel,plain = "
-          f"{[round(v, 3) for v in k5_runs]}), bound {k5_bound[0]:.4f} ms by {k5_bound[1]}, "
-          f"torch.masked_select with the mask given {k5_lib_ms:.3f} ms", flush=True)
+    print(f"huff_write at 256^3 ({count256} symbols from {nwin256} proven windows): kernel "
+          f"{kw_ms:.3f} ms ({kw_cold_ms:.3f} ms with the L2 flushed before each launch), plain "
+          f"{kw_plain_ms:.3f} ms (plain,kernel,kernel,plain = "
+          f"{[round(v, 3) for v in kw_runs]}), bound {kw_bound[0]:.4f} ms by {kw_bound[1]}; no "
+          f"PyTorch call computes it (torch.masked_select compacted the symbol rows, which are "
+          f"gone)", flush=True)
+    print(f"every decode kernel launch of one 256^3 decode_stream, each timed alone: "
+          f"{family_ms:.3f} ms = {[round(v, 3) for v in family_per]} (count passes over "
+          f"{redo256} windows, then the write phase)", flush=True)
     print(f"bounds of the encode kernels at 256^3: K1 {k1_bound[0]:.4f} ms, K2+K3 "
           f"{k2_bound[0]:.4f} ms, both by bytes; neither has a PyTorch call of its own "
           f"(torch.bincount is half of K1)", flush=True)
-    del st, mask, col, nout, off, stream_t, tabs, idx_all, starts_all, dec_cases
+    del st, nout, off, stream_t, tabs, idx_all, starts_all, dec_cases
     torch.cuda.empty_cache()
 
     stamp("phase 2 done")
@@ -559,7 +681,7 @@ def main() -> int:
     # launches are counted over the compress/decompress calls only: the
     # counters are zeroed just before them and read just after
     counters = {"hist_literals": ed.hist_and_literals, "pack_bits": ed.pack_bits,
-                "huff_scan": dec.scan_windows, "huff_compact": dec.compact_windows}
+                "huff_scan": dec.scan_windows, "huff_write": dec.write_windows}
     launches = dict.fromkeys(counters, 0)
 
     def drive(fn):
@@ -590,11 +712,18 @@ def main() -> int:
         (blob_warm, enc_warm_s), enc_seen = drive(
             lambda: szp.compress(data, szp.Config(absErrorBound=EB), device="cuda"))
         ((out, _), dec_s), _ = drive(lambda: szp.decompress(blob_native, device="cuda"))
+        del out
+        torch.cuda.synchronize()
+        first_peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         ((out, _), dec_warm_s), dec_seen = drive(
             lambda: szp.decompress(blob_native, device="cuda"))
+        dec_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
         check(enc_seen["hist_literals"] >= 1 and enc_seen["pack_bits"] >= 1,
               f"{n}^3 compress launched {enc_seen}")
-        check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_compact"] >= 1,
+        check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] >= 1,
               f"{n}^3 decompress launched {dec_seen}")
         for label, b in (("cold", blob_cold), ("warm", blob_warm)):
             check(hashlib.sha256(b).hexdigest() == sha_native,
@@ -614,6 +743,11 @@ def main() -> int:
         print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
               f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; "
               f"launches per decompress {dec_seen}, per compress {enc_seen}", flush=True)
+        print(f"  peak device memory of the warm decompress, above the {held / 2**30:.3f} GiB "
+              f"held before it (cached stream order): {dec_peak / 2**30:.3f} GiB "
+              f"({dec_peak / 1e6:.0f} MB); the per-window symbol rows that the decode no longer "
+              f"makes were {ROWS_MB[n]} MB at this size; peak over this size's two compresses and "
+              f"first decompress {first_peak / 2**30:.2f} GiB", flush=True)
         del out, out_np
 
         # where the encode time goes: the stages of compress, one by one
@@ -653,8 +787,8 @@ def main() -> int:
             dec.upload_bytes(unpred.data, dev)[:unpred.nbytes].view(torch.float32)))
         tabs, tables_s = sync_time(lambda: dec.build_decode_tables(codes, lens, offset, dev))
         state, redo, scan_s, check_s = scan_to_end(stream_t, len(bits) * 8, tabs)
-        dense, k5_s = sync_time(lambda: dec.compact_windows(
-            state.syms, state.nskip, *dec.owned_runs(state, count), count))
+        dense, write_s = sync_time(lambda: dec.write_windows(
+            stream_t, len(bits) * 8, tabs, state.entry, *dec.owned_runs(state, count), count))
         perm = de.perm_for(dc, dev)
         plan = de.plan_for(dc)
         lit_d, place_s = sync_time(lambda: stream_order.literal_grid(
@@ -674,7 +808,7 @@ def main() -> int:
         dpass_ms = event_ms(passes, reps=3)
         print(f"  decode stages (s): host zstd open {open_s:.3f}, upload (stream + literals) "
               f"{up2_s:.3f}, tables {tables_s:.3f}, K4 {scan_s:.3f} in {len(redo)} passes over "
-              f"{redo} windows, validation {check_s:.3f}, K5 {k5_s:.3f}, literal placement "
+              f"{redo} windows, validation {check_s:.3f}, write phase {write_s:.3f}, literal placement "
               f"{place_s:.3f}, inverse scatter {scatter_s:.3f}, device passes {dpass_s:.3f} "
               f"(events {dpass_ms / 1e3:.3f})", flush=True)
         del bins_d, lit_d, state, dense, stream_t, values, staged, perm
@@ -689,8 +823,6 @@ def main() -> int:
             print(f"  device busy, warm {label} under torch.profiler: {busy_ms:.2f} ms of "
                   f"{wall_ms:.2f} ms wall ({share}; {events} device events; {split})",
                   flush=True)
-        print(f"  peak device memory from this size's first compress on "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         stamp(f"main path {n}^3 done")
         torch.cuda.empty_cache()
 
@@ -707,7 +839,7 @@ def main() -> int:
           "f64 256^3 decode not bit-equal to the host engine's")
     err64 = float(np.abs(out64 - data64).max())
     check(err64 <= EB, f"f64 256^3 max error {err64} > {EB}")
-    check(seen64["huff_scan"] >= 1 and seen64["huff_compact"] >= 1,
+    check(seen64["huff_scan"] >= 1 and seen64["huff_write"] >= 1,
           f"f64 256^3 decompress launched {seen64}")
     print(f"main path 256^3 f64 ({data64.nbytes / 1e6:.0f} MB): archive sha256 == host engine, "
           f"decode bit-equal, max err {err64:.3e}; encode {enc64_s:.3f} s, decode "
@@ -729,13 +861,14 @@ def main() -> int:
 
     kernels = [
         row("hist_literals", "hist_literals.cu", "sz3_tpu/ops/entropy_device.py:124", k1_err,
-            k1_ms, k1_plain_ms, k1_bound, None),
+            k1_ms, k1_plain_ms, k1_bound, None, device_ms=k1_dev_ms),
         row("pack_bits", "pack_bits.cu", "sz3_tpu/ops/entropy_device.py:308", k2_err, k2_ms,
-            k2_plain_ms, k2_bound, None, also_replaces="sz3_tpu/ops/entropy_device.py:484"),
+            k2_plain_ms, k2_bound, None, also_replaces="sz3_tpu/ops/entropy_device.py:484",
+            device_ms=k2_dev_ms),
         row("huff_scan", "huff_scan.cu", "sz3_tpu/ops/entropy_decode.py:283", k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
-        row("huff_compact", "huff_compact.cu", "sz3_tpu/ops/entropy_decode.py:470", k5_err,
-            k5_ms, k5_plain_ms, k5_bound, k5_lib_ms),
+        row("huff_write", "huff_write.cu", "sz3_tpu/ops/entropy_decode.py:470", kw_err,
+            kw_ms, kw_plain_ms, kw_bound, None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

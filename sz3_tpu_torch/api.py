@@ -3,9 +3,9 @@
 
   [magic u32][data-version u32][payload size u64] [payload] [Config]
 
-The device is explicit: ``device="cuda"`` runs the passes and kernels on the
-current CUDA device and raises when there is none; ``device="cpu"`` runs the
-kernels' plain PyTorch versions.
+``device`` defaults to ``"cuda"``: the passes and kernels run on the current
+CUDA device, and the call raises when there is none. ``device="cpu"`` has to
+be asked for, and runs the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def open_archive(blob: bytes) -> Tuple[Config, bytes]:
 
 
 def compress(data: Union[np.ndarray, torch.Tensor], conf: Optional[Config] = None, *,
-             device, set_datatype: bool = True) -> bytes:
+             device="cuda", set_datatype: bool = True) -> bytes:
     """Compress an array into an SZ3 archive on `device`.
 
     `conf` carries algorithm and error-bound settings; dims and dtype come
@@ -104,7 +104,7 @@ def compress(data: Union[np.ndarray, torch.Tensor], conf: Optional[Config] = Non
     return pack_archive(c, compress_payload_torch(c, arr, cap, dev))
 
 
-def decompress(blob: bytes, *, device, dtype=None) -> Tuple[torch.Tensor, Config]:
+def decompress(blob: bytes, *, device="cuda", dtype=None) -> Tuple[torch.Tensor, Config]:
     """Decompress an SZ3 archive into a tensor on `device`; returns (tensor,
     effective config). `dtype` (numpy dtype or DataType) overrides the
     archive's dataType byte."""

@@ -147,12 +147,13 @@ def kernels() -> C.CDLL:
         lib.szt_literal_slots.restype = i32
         lib.szt_literal_slots.argtypes = [p, i64, i64, i32, p, p, p]
         lib.szt_pack_bits.restype = i32
-        lib.szt_pack_bits.argtypes = [p, i64, i32, p, p, i64, i32, p, i64, p, p]
+        lib.szt_pack_bits.argtypes = [p, i64, i32, p, p, p, i64, i32, p, i64, p, p]
         lib.szt_huff_scan.restype = i32
-        lib.szt_huff_scan.argtypes = [p, i64, i64, i64, i64, p, p, p, p, p, p, i32, p, p, i32,
-                                      p, p, p, p, p, p]
-        lib.szt_huff_compact.restype = i32
-        lib.szt_huff_compact.argtypes = [p, i32, i64, p, p, p, p, p]
+        lib.szt_huff_scan.argtypes = [p, i64, i64, i64, i64, i32, i32, p, p, p, p, p, i32, p,
+                                      i32, p, p, p, p, p]
+        lib.szt_huff_write.restype = i32
+        lib.szt_huff_write.argtypes = [p, i64, i64, i32, p, p, p, i64, i32, p, p, p, p, p, i32,
+                                       p, p, p, p]
         _lib = lib
     return _lib
 

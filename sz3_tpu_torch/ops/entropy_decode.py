@@ -4,16 +4,17 @@ sz3_tpu/ops/entropy_decode.py).
 The reference decodes its MSB-first Huffman stream with one sequential walk
 (HuffmanEncoder.hpp:225-279), and the stream has no chunk markers. The device
 decode splits it into fixed 1024-bit windows that decode speculatively, all
-at once:
+at once, and decodes every window twice: once to count, once to write.
 
-  scan_windows     csrc/huff_scan.cu, replaces _scan_kernel (K4). A window
-                   starts 64 bits early (its runway, inside the window
-                   before). Huffman codes self-synchronise, so by its own
-                   first bit the walk has almost surely met the true symbol
-                   boundaries. Each window records its entry (first boundary
-                   at or after its start), its exit (first boundary at or
-                   after its end), how many symbols started in the runway
-                   (nskip) and in the window (nout), and the symbols.
+  scan_windows     csrc/huff_scan.cu, replaces _scan_kernel (K4): the count
+                   phase. A window starts RUN_BITS bits early (its runway,
+                   inside the window before). Huffman codes
+                   self-synchronise, so by its own first bit the walk has
+                   almost surely met the true symbol boundaries. Each window
+                   records its entry (first boundary at or after its start),
+                   its exit (first boundary at or after its end), and how
+                   many symbols started in the runway (nskip) and in the
+                   window (nout). No symbol is stored.
   validation       exit[i] == entry[i+1] for every i, with window 0 pinned
                    to bit 0, proves by induction that every window decoded
                    the true sequence; synchronisation is no part of the
@@ -24,9 +25,12 @@ at once:
                    or does not start where the walk ended. The first bad
                    window's entry is proven, so every pass extends the
                    proven prefix and the loop ends.
-  compact_windows  csrc/huff_compact.cu, replaces _compact_kernel (K5): each
-                   window's owned run syms[w, nskip : nskip + nout] to its
-                   exclusive prefix offset in the dense stream.
+  write_windows    csrc/huff_write.cu, replaces _compact_kernel (K5): the
+                   write phase. Each window is walked again from its proven
+                   entry for exactly its nout symbols, which go straight to
+                   its exclusive prefix offset in the dense stream. The TPU
+                   package copies them out of per-window symbol rows
+                   instead; no such rows exist here.
 
 Symbol lookup: an 11-bit direct table resolves the short codes; a longer
 code is the predecessor of the next 64 stream bits among the sorted
@@ -50,8 +54,13 @@ import torch
 from ..build import kernels
 
 W_BITS = 1024                       # window payload bits
-RUN_BITS = 64                       # runway: the early start that lets a window synchronise
+RUN_BITS = 128                      # runway: the early start that lets a window synchronise,
+                                    # a multiple of 32 up to 256 (the JAX package's is 64,
+                                    # which leaves four times as many windows to the rescans)
 L1_BITS = 11                        # direct table width
+SUB_BITS = 13                       # a second table resolves a prefix's longer codes by up to
+                                    # this many more bits: codes of up to 24 bits in two loads
+SUB_BUDGET = 1 << 20                # entries of all second tables together
 MAXLEN = 64                         # longest code the decode takes
 PAD_BYTES = 16                      # zero bytes after the stream: the last window's peeks
 
@@ -66,12 +75,23 @@ class DecodeTables(NamedTuple):
                                     # in the signed-compare domain (bits ^ 2^63)
     deep_sym: torch.Tensor          # (ndeep,) int32
     deep_len: torch.Tensor          # (ndeep,) int32
-    cap: int                        # symbols a window can decode: row length of `syms`
+    # what the kernels look codes up in (csrc/huff_walk.cuh, CodeTables); the plain
+    # versions use the five tensors above
+    root: torch.Tensor              # (2048,) int32 by 11-bit prefix. Low byte: a short code's
+                                    # length, or 0x80 | m where a second table resolves the
+                                    # prefix's longer codes by their next m bits, or 0 (search
+                                    # the deep codes). Upper 24 bits: the second table's
+                                    # offset; for a short code, the bits (byte 1) and number
+                                    # (byte 2) of the short codes that lie whole in the 11 bits
+    sub_len: torch.Tensor           # (nsub,) uint8: the second tables' code lengths; 0 sends
+                                    # the lookup on to the search
+    sub_sym: torch.Tensor           # (nsub,) int32: their symbols
+    maxlen: int                     # the longest code
+    cap: int                        # the most symbols a window's walk takes
 
 
 class ScanState(NamedTuple):
     """Per-window results of the scan, updated in place by each pass."""
-    syms: torch.Tensor              # (nwin, cap) int32: decoded symbols, runway first
     entry: torch.Tensor             # (nwin,) int32, runway-relative bit
     exit: torch.Tensor              # (nwin,) int32, runway-relative bit; -1 = walk not ended
     nskip: torch.Tensor             # (nwin,) int32
@@ -95,49 +115,124 @@ def build_decode_tables(codes: np.ndarray, lens: np.ndarray, offset: int,
         raise ValueError("huffman symbols outside int32")
     cap = (RUN_BITS + W_BITS) // int(L.min()) + 2
 
-    l1_sym = np.zeros(1 << L1_BITS, np.int32)
-    l1_len = np.zeros(1 << L1_BITS, np.int32)
     short = L <= L1_BITS
-    for c, ln, sy in zip(C[short].tolist(), L[short].tolist(), syms[short].tolist()):
-        lo = c << (L1_BITS - ln)
-        l1_sym[lo:lo + (1 << (L1_BITS - ln))] = sy
-        l1_len[lo:lo + (1 << (L1_BITS - ln))] = ln
+    by_code = np.argsort(C[short] << (L1_BITS - L[short]).astype(np.uint64))
+    sl, ss = L[short][by_code], syms[short][by_code]
+    l1_sym, l1_len = _tile(1 << L1_BITS,
+                           (C[short][by_code] << (L1_BITS - sl).astype(np.uint64)).astype(np.int64),
+                           np.int64(1) << (L1_BITS - sl), ss.astype(np.int32), sl.astype(np.int32))
     deep = ~short
     left = C[deep] << (MAXLEN - L[deep]).astype(np.uint64)
-    order = np.argsort(left, kind="stable")
+    order = np.argsort(left)                           # a prefix-free code: no two are equal
     key = (left[order] ^ np.uint64(1 << 63)).view(np.int64)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    root, sub_len, sub_sym = _second_tables(left[order], L[deep][order], syms[deep][order])
+    root |= _short_groups(l1_len)
+    # one upload for the int32 tables (each small copy from pageable memory
+    # costs more than its bytes)
+    i32 = [l1_sym, l1_len, syms[deep][order], L[deep][order], root, sub_sym]
+    joined = torch.from_numpy(np.concatenate(i32).astype(np.int32, copy=False)).to(device)
+    t_sym, t_len, d_sym, d_len, t_root, s_sym = torch.split(joined, [a.size for a in i32])
+    return DecodeTables(t_sym, t_len, torch.from_numpy(np.ascontiguousarray(key)).to(device),
+                        d_sym, d_len, t_root, torch.from_numpy(sub_len).to(device), s_sym,
+                        int(L.max()), cap)
 
-    return DecodeTables(dev(l1_sym), dev(l1_len), dev(key),
-                        dev(syms[deep][order].astype(np.int32)),
-                        dev(L[deep][order].astype(np.int32)), cap)
+
+def _short_groups(l1_len: np.ndarray) -> np.ndarray:
+    """Root entries of the short codes, by 11-bit prefix: the first code's
+    length (low byte), and the bits (byte 1) and number (byte 2) of all the
+    short codes that lie whole within the 11 bits, the first included."""
+    prefix = np.arange(1 << L1_BITS)
+    bits = np.zeros(1 << L1_BITS, np.int32)
+    number = np.zeros(1 << L1_BITS, np.int32)
+    going = np.ones(1 << L1_BITS, bool)
+    shortest = int(l1_len[l1_len > 0].min()) if l1_len.any() else L1_BITS
+    for _ in range(L1_BITS // shortest):                # no more codes than that fit in 11 bits
+        ln = l1_len[(prefix << bits) & ((1 << L1_BITS) - 1)]
+        going &= (ln > 0) & (bits + ln <= L1_BITS)
+        bits += np.where(going, ln, 0)
+        number += going
+    return np.where(l1_len > 0, l1_len | (bits << 8) | (number << 16), 0).astype(np.int32)
 
 
-def new_scan_state(nwin: int, cap: int, device) -> ScanState:
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=device)
-    return ScanState(i32(nwin, cap), i32(nwin), i32(nwin), i32(nwin), i32(nwin))
+def _tile(total: int, start: np.ndarray, span: np.ndarray, *values: np.ndarray):
+    """For each array of `values`, an array of `total` entries that holds
+    values[i] at [start[i], start[i] + span[i]) and 0 elsewhere. The intervals
+    ascend and do not overlap."""
+    n = start.size
+    counts = np.empty(2 * n + 1, np.int64)              # gap, interval, gap, ..., gap
+    ends = start + span
+    counts[0:2 * n:2] = start - np.concatenate([[0], ends[:-1]])
+    counts[1:2 * n:2] = span
+    counts[2 * n] = total - (ends[-1] if n else 0)
+    out = []
+    for v in values:
+        seq = np.zeros(2 * n + 1, v.dtype)
+        seq[1:2 * n:2] = v
+        out.append(np.repeat(seq, counts))
+    return out
+
+
+def _second_tables(left: np.ndarray, lens: np.ndarray, syms: np.ndarray):
+    """The deep codes (left-aligned codewords ascending, uint64) -> (root
+    entries of their 11-bit prefixes, sub_len, sub_sym). Each prefix gets a
+    table indexed by the next m bits, m = min(its longest code - 11,
+    SUB_BITS), in ascending order of prefix for as long as SUB_BUDGET entries
+    last. A code fills every entry its bits lead to; entries of longer codes
+    stay 0."""
+    root = np.zeros(1 << L1_BITS, np.int32)
+    if left.size == 0:
+        return root, np.zeros(0, np.uint8), np.zeros(0, np.int32)
+    prefix = (left >> np.uint64(64 - L1_BITS)).astype(np.int64)
+    first = np.flatnonzero(np.r_[True, prefix[1:] != prefix[:-1]])   # ascending: group starts
+    m = np.minimum(np.maximum.reduceat(lens, first) - L1_BITS, SUB_BITS)
+    size = np.int64(1) << m
+    off = np.cumsum(size) - size
+    take = off + size <= SUB_BUDGET
+    root[prefix[first][take]] = ((off[take] << 8) | 0x80 | m[take]).astype(np.int32)
+    per = np.diff(np.r_[first, left.size])              # codes of each group
+    width = L1_BITS + np.repeat(m, per)
+    fits = np.repeat(take, per) & (lens <= width)
+    width, cl = width[fits], lens[fits]
+    start = np.repeat(off, per)[fits] + (
+        (left[fits] >> (64 - width).astype(np.uint64)).astype(np.int64)
+        & ((np.int64(1) << (width - L1_BITS)) - 1))
+    sub_len, sub_sym = _tile(int((size * take).sum()), start, np.int64(1) << (width - cl),
+                             cl.astype(np.uint8), syms[fits].astype(np.int32))
+    return root, sub_len, sub_sym
+
+
+def new_scan_state(nwin: int, device) -> ScanState:
+    return ScanState(*(torch.empty(nwin, dtype=torch.int32, device=device) for _ in range(4)))
+
+
+def _table_tensors(tables: DecodeTables):
+    return ((tables.l1_sym, torch.int32), (tables.l1_len, torch.int32),
+            (tables.deep_key, torch.int64), (tables.deep_sym, torch.int32),
+            (tables.deep_len, torch.int32), (tables.root, torch.int32),
+            (tables.sub_len, torch.uint8), (tables.sub_sym, torch.int32))
+
+
+def _check_stream(stream: torch.Tensor, total_bits: int) -> None:
+    if stream.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {stream.device}")
+    if stream.dtype != torch.uint8 or stream.dim() != 1 or not stream.is_contiguous():
+        raise ValueError("stream must be a contiguous 1-D uint8 tensor")
+    if (stream.numel() % 4 or stream.numel() * 8 < total_bits + 8 * PAD_BYTES
+            or stream.data_ptr() % 4):
+        raise ValueError("stream must hold total_bits, then PAD_BYTES zero bytes, and a "
+                         "whole number of aligned 32-bit words")
 
 
 def _check_scan(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
                 idx: torch.Tensor, starts: torch.Tensor, state: ScanState) -> None:
+    _check_stream(stream, total_bits)
     dev = stream.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if stream.dtype != torch.uint8 or stream.dim() != 1 or not stream.is_contiguous():
-        raise ValueError("stream must be a contiguous 1-D uint8 tensor")
-    if stream.numel() % 4 or stream.numel() * 8 < total_bits + 8 * PAD_BYTES:
-        raise ValueError("stream must hold total_bits, then PAD_BYTES zero bytes, and a "
-                         "whole number of 32-bit words")
     nwin = state.entry.numel()
-    if nwin != max(1, -(-total_bits // W_BITS)) or state.syms.shape != (nwin, tables.cap):
+    if nwin != max(1, -(-total_bits // W_BITS)) or any(s.shape != (nwin,) for s in state):
         raise ValueError("scan state does not fit the stream")
     for t, dt in ((idx, torch.int32), (starts, torch.int32), *((s, torch.int32) for s in state),
-                  (tables.l1_sym, torch.int32), (tables.l1_len, torch.int32),
-                  (tables.deep_key, torch.int64), (tables.deep_sym, torch.int32),
-                  (tables.deep_len, torch.int32)):
+                  *_table_tensors(tables)):
         if t.dtype != dt or t.device != dev or not t.is_contiguous():
             raise ValueError("scan arguments must be contiguous tensors of their documented "
                              "types on the stream's device")
@@ -178,12 +273,39 @@ def scan_windows_plain(stream: torch.Tensor, total_bits: int, tables: DecodeTabl
     return None
 
 
+def _be_words(stream: torch.Tensor) -> torch.Tensor:
+    """The stream's big-endian 32-bit words, as int64."""
+    b = stream.view(-1, 4).to(torch.int64)
+    return (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
+
+
+def _lookup_plain(words: torch.Tensor, p: torch.Tensor, tables: DecodeTables):
+    """(symbol, length) of the code at each absolute stream bit of `p`, int64;
+    length 0 where the bits there are no code."""
+    wi = (p >> 5).clamp(min=0, max=words.numel() - 3)
+    sh = p & 31
+    w0, w1, w2 = words[wi], words[wi + 1], words[wi + 2]
+    hi = ((w0 << sh) | (w1 >> (32 - sh))) & 0xFFFFFFFF
+    lo = ((w1 << sh) | (w2 >> (32 - sh))) & 0xFFFFFFFF
+    i1 = hi >> (32 - L1_BITS)
+    ln = tables.l1_len[i1].to(torch.int64)
+    sym = tables.l1_sym[i1].to(torch.int64)
+    if tables.deep_key.numel():
+        key = ((hi << 32) | lo) ^ _MIN64
+        r = torch.searchsorted(tables.deep_key, key, right=True) - 1
+        is_deep = ln == 0
+        at = r.clamp(min=0)
+        sym = torch.where(is_deep, tables.deep_sym[at].to(torch.int64), sym)
+        ln = torch.where(is_deep, torch.where(r >= 0, tables.deep_len[at].to(torch.int64), 0),
+                         ln)
+    return sym, ln.clamp(min=0)
+
+
 def _walk_plain(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
                 idx: torch.Tensor, starts: torch.Tensor, state: ScanState) -> None:
     n = idx.numel()
     dev = stream.device
-    b = stream.view(-1, 4).to(torch.int64)
-    words = (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
+    words = _be_words(stream)
     w = idx.to(torch.int64)
     base = w * W_BITS - RUN_BITS                       # absolute bit of the runway's start
     end = torch.clamp(total_bits - w * W_BITS, max=W_BITS) + RUN_BITS
@@ -194,32 +316,12 @@ def _walk_plain(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
     exit_ = entry.clone()
     nskip = torch.zeros(n, dtype=torch.int64, device=dev)
     nout = torch.zeros(n, dtype=torch.int64, device=dev)
-    syms = state.syms[w]                               # the rest of a row stays as it was
-    l1_sym, l1_len = tables.l1_sym.to(torch.int64), tables.l1_len.to(torch.int64)
-    deep_sym, deep_len = tables.deep_sym.to(torch.int64), tables.deep_len.to(torch.int64)
-    ndeep = tables.deep_key.numel()
-    last_word = words.numel() - 3
-    for step in range(tables.cap):
+    for _ in range(tables.cap):
         if bool(done.all()):
             break
         active = ~done
-        p = base + pos
-        wi = (p >> 5).clamp(min=0, max=last_word)
-        sh = p & 31
-        w0, w1, w2 = words[wi], words[wi + 1], words[wi + 2]
-        hi = ((w0 << sh) | (w1 >> (32 - sh))) & 0xFFFFFFFF
-        lo = ((w1 << sh) | (w2 >> (32 - sh))) & 0xFFFFFFFF
-        i1 = hi >> (32 - L1_BITS)
-        ln = l1_len[i1]
-        sym = l1_sym[i1]
-        if ndeep:
-            key = ((hi << 32) | lo) ^ _MIN64
-            r = torch.searchsorted(tables.deep_key, key, right=True) - 1
-            is_deep = ln == 0
-            sym = torch.where(is_deep, deep_sym[r.clamp(min=0)], sym)
-            ln = torch.where(is_deep, torch.where(r >= 0, deep_len[r.clamp(min=0)], 0), ln)
+        _, ln = _lookup_plain(words, base + pos, tables)
         valid = active & (ln > 0)                      # ln == 0: these bits are no code
-        syms[:, step] = torch.where(valid, sym.to(torch.int32), syms[:, step])
         newpos = pos + ln
         pre = pos < RUN_BITS
         nskip += (valid & pre).to(torch.int64)
@@ -231,7 +333,6 @@ def _walk_plain(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
         exit_ = torch.where(crossed, newpos, exit_)
         pos = torch.where(valid, newpos, pos)
         done = done | crossed | (active & ~valid)
-    state.syms[w] = syms
     for dst, src in ((state.entry, entry), (state.exit, exit_), (state.nskip, nskip),
                      (state.nout, nout)):
         dst[w] = src.to(torch.int32)
@@ -245,11 +346,11 @@ def scan_windows(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
     least PAD_BYTES zero bytes), window idx[i] from the runway-relative bit
     starts[i] (int32): 0 speculates from the runway's start, RUN_BITS or more
     is a known entry. Window w covers stream bits [1024 w, min(1024 (w + 1),
-    total_bits)), its runway the 64 bits before. Writes each window's row of
-    `state` in place: entry = first symbol boundary >= RUN_BITS, exit = first
-    boundary >= the window's end, nskip = symbols that started in the runway,
-    nout = symbols that started in the window, and all nskip + nout symbols
-    at syms[w, :] (the rest of the row is left as it was). A window whose
+    total_bits)), its runway the RUN_BITS bits before. Writes each window's
+    entries of `state` in place: entry = first symbol boundary >= RUN_BITS,
+    exit = first boundary >= the window's end (-1 when the walk meets bits
+    that are no code), nskip = symbols that started in the runway, nout =
+    symbols that started in the window. No symbol is stored. A window whose
     start is at or past its end is done at once with entry = exit = start and
     no symbols. Window 0 has no runway and starts at RUN_BITS at the
     earliest. With `chain`, idx ascends and a walk goes on from its window
@@ -264,17 +365,13 @@ def scan_windows(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
     n = idx.numel()
     if n == 0:
         return None
-    cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
-    if chain:
-        listed = torch.zeros(state.entry.numel(), dtype=torch.uint8, device=stream.device)
-        listed[idx.to(torch.int64)] = 1
     rc = kernels().szt_huff_scan(
-        stream.data_ptr(), stream.numel() // 4, total_bits, n, state.entry.numel(),
-        listed.data_ptr() if chain else None, idx.data_ptr(), starts.data_ptr(),
-        tables.l1_sym.data_ptr(), tables.l1_len.data_ptr(), tables.deep_key.data_ptr(),
-        tables.deep_key.numel(), tables.deep_sym.data_ptr(), tables.deep_len.data_ptr(),
-        tables.cap, state.syms.data_ptr(), state.entry.data_ptr(), state.exit.data_ptr(),
-        state.nskip.data_ptr(), state.nout.data_ptr(), cuda_stream)
+        stream.data_ptr(), stream.numel() // 4, total_bits, n, state.entry.numel(), int(chain),
+        RUN_BITS, idx.data_ptr(), starts.data_ptr(), tables.root.data_ptr(),
+        tables.sub_len.data_ptr(), tables.deep_key.data_ptr(), tables.deep_key.numel(), tables.deep_len.data_ptr(),
+        int(tables.maxlen > 32), state.entry.data_ptr(), state.exit.data_ptr(),
+        state.nskip.data_ptr(), state.nout.data_ptr(),
+        torch.cuda.current_stream(stream.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"szt_huff_scan: CUDA error {rc}")
     scan_windows.launches += 1
@@ -284,57 +381,74 @@ def scan_windows(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
 scan_windows.launches = 0
 
 
-# ---- K5: compaction of the windows' owned runs -----------------------------------
+# ---- K5's function: the write phase ------------------------------------------------
 
-def _check_compact(syms, nskip, nout, off, count):
-    nwin = nskip.numel()
-    dev = syms.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if syms.dim() != 2 or syms.shape[0] != nwin or nout.shape != (nwin,) or off.shape != (nwin,):
-        raise ValueError("syms must be (nwin, cap), and nskip, nout, off (nwin,)")
-    for t, dt in ((syms, torch.int32), (nskip, torch.int32), (nout, torch.int32),
-                  (off, torch.int64)):
+def _check_write(stream, total_bits, tables, entry, nout, off, count):
+    _check_stream(stream, total_bits)
+    dev = stream.device
+    nwin = max(1, -(-total_bits // W_BITS))
+    for t, dt in ((entry, torch.int32), (nout, torch.int32), (off, torch.int64)):
+        if t.shape != (nwin,) or t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError("entry, nout (int32) and off (int64) must be contiguous, one entry "
+                             "per window, on the stream's device")
+    for t, dt in _table_tensors(tables):
         if t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError("syms, nskip, nout must be contiguous int32 and off int64, "
-                             "on one device")
+            raise ValueError("decode tables must be contiguous tensors on the stream's device")
     if not 0 < count < 2 ** 40:
         raise ValueError(f"count {count} outside (0, 2^40)")
 
 
-def compact_plain(syms: torch.Tensor, nskip: torch.Tensor, nout: torch.Tensor,
-                  off: torch.Tensor, count: int) -> torch.Tensor:
-    """Plain version of :func:`compact_windows`."""
-    nwin, cap = syms.shape
-    n64 = nout.to(torch.int64)
-    w = torch.repeat_interleave(torch.arange(nwin, device=syms.device), n64)
-    j = torch.arange(w.numel(), device=syms.device) - (torch.cumsum(n64, 0) - n64)[w]
-    dense = torch.zeros(count, dtype=torch.int32, device=syms.device)
-    dense[off[w] + j] = syms.reshape(-1)[w * cap + nskip.to(torch.int64)[w] + j]
+def write_windows_plain(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
+                        entry: torch.Tensor, nout: torch.Tensor, off: torch.Tensor,
+                        count: int) -> torch.Tensor:
+    """Plain version of :func:`write_windows`: all windows step one symbol at
+    a time, each until it has written its count."""
+    words = _be_words(stream)
+    nwin = entry.numel()
+    w = torch.arange(nwin, dtype=torch.int64, device=stream.device)
+    pos = (w * W_BITS + entry - RUN_BITS).clamp(min=0)
+    n = torch.minimum(nout.to(torch.int64), count - off)
+    n = torch.where((off < 0) | (off >= count), 0, n)
+    dense = torch.zeros(count, dtype=torch.int32, device=stream.device)
+    live = torch.nonzero(n > 0).reshape(-1)
+    j = 0
+    while live.numel():
+        sym, ln = _lookup_plain(words, pos[live], tables)
+        dense[off[live] + j] = torch.where(ln > 0, sym, 0).to(torch.int32)
+        pos[live] += ln
+        j += 1
+        live = live[n[live] > j]
     return dense
 
 
-def compact_windows(syms: torch.Tensor, nskip: torch.Tensor, nout: torch.Tensor,
-                    off: torch.Tensor, count: int) -> torch.Tensor:
-    """Per-window symbol rows -> the dense stream (count,) int32:
-    dense[off[w] : off[w] + nout[w]] = syms[w, nskip[w] : nskip[w] + nout[w]].
-    The caller gives runs that tile [0, count) (off the exclusive scan of
-    nout, summing to count) and lie inside their rows."""
-    _check_compact(syms, nskip, nout, off, count)
-    if syms.device.type == "cpu":
-        return compact_plain(syms, nskip, nout, off, count)
-    dense = torch.empty(count, dtype=torch.int32, device=syms.device)
-    cuda_stream = torch.cuda.current_stream(syms.device).cuda_stream
-    rc = kernels().szt_huff_compact(syms.data_ptr(), syms.shape[1], syms.shape[0],
-                                    nskip.data_ptr(), nout.data_ptr(), off.data_ptr(),
-                                    dense.data_ptr(), cuda_stream)
+def write_windows(stream: torch.Tensor, total_bits: int, tables: DecodeTables,
+                  entry: torch.Tensor, nout: torch.Tensor, off: torch.Tensor,
+                  count: int) -> torch.Tensor:
+    """The windows' owned symbols -> the dense stream (count,) int32:
+    dense[off[w] + j] = the j-th symbol decoded from the stream bit
+    1024 w + entry[w] - RUN_BITS on, for j < nout[w]. `entry` is what
+    scan_windows recorded. The counts end the walks, not the stream's end:
+    the caller gives runs that tile [0, count) (off the exclusive scan of
+    nout, summing to count). A run is cut at `count`; bits that are no code
+    give symbol 0."""
+    _check_write(stream, total_bits, tables, entry, nout, off, count)
+    if stream.device.type == "cpu":
+        return write_windows_plain(stream, total_bits, tables, entry, nout, off, count)
+    dense = torch.empty(count, dtype=torch.int32, device=stream.device)
+    rc = kernels().szt_huff_write(
+        stream.data_ptr(), stream.numel() // 4, entry.numel(), RUN_BITS, entry.data_ptr(),
+        nout.data_ptr(), off.data_ptr(), count, int(tables.maxlen > 32),
+        tables.root.data_ptr(), tables.l1_sym.data_ptr(), tables.sub_len.data_ptr(),
+        tables.sub_sym.data_ptr(), tables.deep_key.data_ptr(), tables.deep_key.numel(),
+        tables.deep_sym.data_ptr(), tables.deep_len.data_ptr(), dense.data_ptr(),
+        torch.cuda.current_stream(stream.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"szt_huff_compact: CUDA error {rc}")
-    compact_windows.launches += 1
+        raise RuntimeError(f"szt_huff_write: CUDA error {rc}")
+    write_windows.launches += 1
     return dense
 
 
-compact_windows.launches = 0
+write_windows.launches = 0
 
 
 # ---- orchestration -----------------------------------------------------------------
@@ -366,7 +480,7 @@ def bad_windows(state: ScanState, wstart: torch.Tensor):
 def rescan_args(bad: torch.Tensor, want: torch.Tensor, wstart: torch.Tensor):
     """(idx, starts) of the rescan of the bad windows, each from the exit of
     the window before. A stale exit may point anywhere; any start in the
-    row's range is a valid speculation, and the first bad window's is the
+    window's range is a valid speculation, and the first bad window's is the
     proven one."""
     idx = torch.nonzero(bad).reshape(-1)
     starts = (want[idx] - wstart[idx] + RUN_BITS).clamp(0, RUN_BITS + W_BITS + MAXLEN - 1)
@@ -374,7 +488,7 @@ def rescan_args(bad: torch.Tensor, want: torch.Tensor, wstart: torch.Tensor):
 
 
 def owned_runs(state: ScanState, count: int):
-    """(nout, off) of the compaction: the windows' owned counts, the last one
+    """(nout, off) of the write phase: the windows' owned counts, the last one
     less the spurious symbols that the zero bits padding the stream's last
     byte decode to, and their exclusive scan. Raises ValueError when the
     windows do not hold `count` symbols."""
@@ -401,7 +515,7 @@ def decode_stream(bits, count: int, codes: np.ndarray, lens: np.ndarray, offset:
     tables = build_decode_tables(codes, lens, offset, device)
     stream = upload_bytes(bits, device, PAD_BYTES)
     nwin = -(-total_bits // W_BITS)
-    state = new_scan_state(nwin, tables.cap, device)
+    state = new_scan_state(nwin, device)
     idx = torch.arange(nwin, dtype=torch.int32, device=device)
     starts = torch.zeros(nwin, dtype=torch.int32, device=device)
     starts[0] = RUN_BITS
@@ -421,4 +535,4 @@ def decode_stream(bits, count: int, codes: np.ndarray, lens: np.ndarray, offset:
     if stats is not None:
         stats.update(nwin=nwin, passes=len(redo), redo_counts=redo, cap=tables.cap)
     nout, off = owned_runs(state, count)
-    return compact_windows(state.syms, state.nskip, nout, off, count)
+    return write_windows(stream, total_bits, tables, state.entry, nout, off, count)

@@ -10,10 +10,11 @@ codes) without the bins leaving the device:
                      stream slots of the bin==0 symbols in stream order.
   pack_bits          csrc/pack_bits.cu, replaces _pack_kernel (K2) and
                      _splice_kernel (K3): code lookup, an int64 exclusive scan
-                     of the code lengths, and each code ORed into the words
-                     at its bit offset. One device-wide scan gives every
-                     symbol its global offset, so the TPU's per-segment pack
-                     and global splice collapse into one kernel.
+                     of the code lengths, and the codes joined into words in
+                     registers and shared memory, tile by tile. One
+                     device-wide scan gives every symbol its global offset,
+                     so the TPU's per-segment pack and global splice collapse
+                     into one kernel.
 
 Each wrapper runs its plain PyTorch version when handed a CPU tensor, and
 only then. For a CUDA tensor it launches the kernel or raises. ``launches``
@@ -38,6 +39,7 @@ SENTINEL = -1
 
 _THREADS = 256                      # block size of both kernels (csrc/*.cu)
 _MAX_BLOCKS = 1024
+_PACK_TILE = _THREADS * 8           # symbols of one tile of csrc/pack_bits.cu
 
 
 def table_len(radius: int) -> int:
@@ -54,11 +56,13 @@ def _sym_index(bins: torch.Tensor, radius: int) -> torch.Tensor:
     return idx.to(torch.int32)
 
 
-def _partition(n: int):
-    """(blocks, elements per block): each block owns one contiguous run of
-    the stream, so per-block results concatenate in stream order."""
+def _partition(n: int, tile: int = 1):
+    """(blocks, elements per block, a multiple of `tile`): each block owns one
+    contiguous run of the stream, so per-block results concatenate in stream
+    order."""
     blocks = max(1, min(_MAX_BLOCKS, -(-n // (_THREADS * 16))))
-    return blocks, -(-n // blocks)
+    per_block = -(-n // (blocks * tile)) * tile
+    return -(-n // per_block), per_block
 
 
 def _check_bins(bins: torch.Tensor, radius: int) -> None:
@@ -170,14 +174,17 @@ def pack_bits(bins: torch.Tensor, table_codes: torch.Tensor, table_lens: torch.T
     if bins.device.type == "cpu":
         return pack_bits_plain(bins, table_codes, table_lens, radius, total_bits)
     n = bins.numel()
-    blocks, per_block = _partition(n)
+    blocks, per_block = _partition(n, _PACK_TILE)
     nwords = (total_bits + 31) // 32
     words = torch.zeros(nwords + 1, dtype=torch.int32, device=bins.device)
     offsets = torch.empty(blocks + 1, dtype=torch.int64, device=bins.device)
+    # scratch: the kernel's own table of (code, length) entries, 16 bytes each
+    table = torch.empty((table_len(radius), 2), dtype=torch.int64, device=bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     _ok(kernels().szt_pack_bits(bins.data_ptr(), n, 2 * radius, table_codes.data_ptr(),
-                                table_lens.data_ptr(), per_block, blocks, offsets.data_ptr(),
-                                nwords + 1, words.data_ptr(), stream), "szt_pack_bits")
+                                table_lens.data_ptr(), table.data_ptr(), per_block, blocks,
+                                offsets.data_ptr(), nwords + 1, words.data_ptr(), stream),
+        "szt_pack_bits")
     pack_bits.launches += 1
     got = int(offsets[blocks].item())
     if got != total_bits:

@@ -291,3 +291,16 @@ def test_golden_corpus(case):
         return
     assert conf.cmprAlgo in (ALGO.INTERP, ALGO.LOSSLESS)
     assert hashlib.sha256(out.numpy().tobytes()).hexdigest() == case["out_sha"]
+
+
+def test_device_defaults_to_the_card():
+    """compress and decompress run on the card unless the caller asks for the
+    CPU: without a device argument, on a machine without a card, they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    x = np.zeros((8, 8, 8), np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        szp.compress(x, P.Config(absErrorBound=1e-3))
+    blob = szp.compress(x, P.Config(absErrorBound=1e-3), device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        szp.decompress(blob)

@@ -81,6 +81,28 @@ def test_pack_bits_codes_up_to_64_bits(dev):
     assert torch.equal(w, ted.pack_bits_plain(b, tc, tl, RADIUS, total))
 
 
+@pytest.mark.parametrize("n,lo,hi", [(3 * 2048, 33, 64), (2048, 64, 64),
+                                     (2 * 2048 + 8 * 37 + 5, 1, 40), (5, 1, 64),
+                                     (1_000_003, 0, 3)])
+def test_pack_bits_tile_edges(dev, n, lo, hi):
+    """Whole tiles of 33-64 bit codes (the most the kernel's shared buffer
+    holds), a stream that ends inside a thread's run of 8 symbols, and codes
+    so short that many threads share one word."""
+    rng = np.random.default_rng(n + hi)
+    tbl = ted.table_len(RADIUS)
+    tl = torch.from_numpy(rng.integers(lo, hi + 1, tbl).astype(np.int32)).to(dev)
+    tc = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, tbl, dtype=np.int64)).to(dev)
+    b = torch.from_numpy(rng.integers(1, 2 * RADIUS, n).astype(np.int32)).to(dev)
+    total = int(tl.to(torch.int64)[ted._sym_index(b, RADIUS).long()].sum())
+    w = ted.pack_bits(b, tc, tl, RADIUS, total)
+    assert torch.equal(w, ted.pack_bits_plain(b, tc, tl, RADIUS, total))
+    # bins that do not start on a 16-byte boundary take the scalar loads
+    if n > 8:
+        total = int(tl.to(torch.int64)[ted._sym_index(b[1:], RADIUS).long()].sum())
+        w = ted.pack_bits(b[1:], tc, tl, RADIUS, total)
+        assert torch.equal(w, ted.pack_bits_plain(b[1:], tc, tl, RADIUS, total))
+
+
 def test_launches_count_and_no_cpu_fallback(dev):
     b = torch.from_numpy(_stream(10_000, 3)).to(dev)
     before = (ted.hist_and_literals.launches, ted.pack_bits.launches)
@@ -114,7 +136,7 @@ def test_archives_match_host_engine(dev, shape, algo, eb):
     assert np.array_equal(out.cpu().numpy().view(np.int32), ref.view(np.int32))
 
 
-# ---- the decode kernels (K4 huff_scan, K5 huff_compact) ---------------------------
+# ---- the decode kernels (huff_scan counts, huff_write writes) ----------------------
 
 DEC_RADIUS = 64
 
@@ -173,7 +195,7 @@ def _two_passes(bits, codes, lens, lo, device, scan):
     tables = tdec.build_decode_tables(codes, lens, lo, device)
     stream = tdec.upload_bytes(bits, device, tdec.PAD_BYTES)
     nwin = -(-total_bits // tdec.W_BITS)
-    state = tdec.new_scan_state(nwin, tables.cap, device)
+    state = tdec.new_scan_state(nwin, device)
     for s in state:
         s.zero_()
     idx = torch.arange(nwin, dtype=torch.int32, device=device)
@@ -186,29 +208,43 @@ def _two_passes(bits, codes, lens, lo, device, scan):
     idx = torch.nonzero(bad).reshape(-1)
     starts = (want[idx] - wstart[idx] + tdec.RUN_BITS).to(torch.int32)
     scan(stream, total_bits, tables, idx.to(torch.int32), starts, state, chain=True)
-    return first, state
+    return first, state, (stream, total_bits, tables)
 
 
 @pytest.mark.parametrize("name", list(_decode_cases()))
 def test_scan_and_compact_match_plain(dev, name):
+    """The count phase (a first pass and a chained rescan) and the write
+    phase, which does what the compaction did, against their plain versions."""
     freq, syms = _decode_cases()[name]
     bits, codes, lens, lo, _ = _coded_stream(freq, syms)
-    k1, k = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows)
-    p1, p = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows_plain)
+    k1, k, args = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows)
+    p1, p, _ = _two_passes(bits, codes, lens, lo, dev, tdec.scan_windows_plain)
     for a, b in zip((*k1, *k), (*p1, *p)):
         assert torch.equal(a, b)
-    n64 = k.nout.to(torch.int64)
-    off = torch.cumsum(n64, 0) - n64
-    count = int(n64.sum())
-    assert torch.equal(tdec.compact_windows(k.syms, k.nskip, k.nout, off, count),
-                       tdec.compact_plain(k.syms, k.nskip, k.nout, off, count))
-    before = (tdec.scan_windows.launches, tdec.compact_windows.launches)
+    # the runs of the first pass, mis-speculated windows and all, and of the rescan
+    for st in (k1, k):
+        n64 = st.nout.to(torch.int64)
+        off = torch.cumsum(n64, 0) - n64
+        count = int(n64.sum())
+        assert torch.equal(tdec.write_windows(*args, st.entry, st.nout, off, count),
+                           tdec.write_windows_plain(*args, st.entry, st.nout, off, count))
+    before = (tdec.scan_windows.launches, tdec.write_windows.launches)
     stats = {}
     dense = tdec.decode_stream(bits, len(syms), codes, lens, lo, dev, stats)
     assert dense.device.type == "cuda"
     assert np.array_equal(dense.cpu().numpy(), syms)
     assert tdec.scan_windows.launches == before[0] + stats["passes"]
-    assert tdec.compact_windows.launches == before[1] + 1
+    assert tdec.write_windows.launches == before[1] + 1
+
+
+def test_write_takes_symbols_outside_24_bits(dev):
+    """Symbols below 0 or from 2^24 on: the kernel reads a code's symbol from
+    an array of whole int32 values, not from beside its length."""
+    freq, syms = _decode_cases()["fibonacci_33_levels"]
+    for lo in (-7, (1 << 24) - 5):
+        bits, codes, lens, _, _ = _coded_stream(freq, syms)
+        dense = tdec.decode_stream(bits, len(syms), codes, lens, lo, dev)
+        assert np.array_equal(dense.cpu().numpy(), syms - 1 + lo)
 
 
 def test_f64_and_edge_archives_decode_on_the_card(dev):

@@ -173,6 +173,42 @@ def test_pack_bits_matches_numpy(n, maxlen, seed):
         ted.pack_bits(torch.from_numpy(b), tc, torch.from_numpy(lens), RADIUS, total + 1)
 
 
+def _random_codes(rng, lo, hi):
+    """A table of random codes of lo..hi bits (SENTINEL codes nothing)."""
+    tbl = ted.table_len(RADIUS)
+    lens = rng.integers(lo, hi + 1, tbl).astype(np.int32)
+    lens[1] = 0
+    raw = rng.integers(0, 2 ** 64, tbl, dtype=np.uint64)
+    keep = np.where(lens == 64, ~np.uint64(0),
+                    (np.uint64(1) << lens.clip(max=63).astype(np.uint64)) - np.uint64(1))
+    return raw & keep, lens
+
+
+@pytest.mark.parametrize("n,lo,hi", [
+    # whole tiles of the kernel (2048 symbols, 8 to a thread) in which every
+    # code has 33-64 bits: the most a tile's shared buffer has to hold
+    (3 * ted._PACK_TILE, 33, 64), (ted._PACK_TILE, 64, 64),
+    # a stream that ends inside a thread's run of 8 symbols
+    (2 * ted._PACK_TILE + 8 * 37 + 5, 1, 40), (5, 1, 64)])
+def test_pack_bits_tile_edges_match_numpy(n, lo, hi):
+    rng = np.random.default_rng(n + hi)
+    codes, lens = _random_codes(rng, lo, hi)
+    b = rng.integers(1, 2 * RADIUS, n).astype(np.int32)
+    want, total = _np_pack(b, codes, lens, RADIUS)
+    assert total >= lo * n
+    got = ted.pack_bits(torch.from_numpy(b), torch.from_numpy(codes.view(np.int64)),
+                        torch.from_numpy(lens), RADIUS, total)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 4096, 4097, 5_000_003, 1 << 27])
+def test_partition_covers_the_stream_in_whole_tiles(n):
+    for tile in (1, ted._PACK_TILE):
+        blocks, per_block = ted._partition(n, tile)
+        assert per_block % tile == 0 and 1 <= blocks <= ted._MAX_BLOCKS
+        assert (blocks - 1) * per_block < n <= blocks * per_block
+
+
 def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         ted.hist_and_literals(torch.zeros(10, dtype=torch.int64), RADIUS)
