@@ -10,15 +10,17 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      the encode kernels on the stream-order bins of the 256^3 field and on
      synthetic streams (zeros, SENTINELs, symbols across the quantizer's
      whole range, and a Fibonacci histogram whose Huffman codes exceed 32
-     bits); the decode kernels (the count phase's first pass and chained
+     bits; for K1 also a constant stream, an all-zero one and one with no
+     symbol in its shared window); the decode kernels (the count phase's first pass and chained
      rescan, and the write phase) on the 256^3 archive's Huffman stream and
      on synthetic streams (codes of up to 63 bits, a shortest code of 1
      bit, fewer than 64 windows, a code that never synchronises). Their
      times (CUDA events, after a warm-up, in the order plain, kernel,
      kernel, plain), each kernel's bound, the decode kernels also with the
      L2 cache flushed before each launch, and every decode launch of one
-     256^3 decompress summed. No PyTorch call computes any of the four
-     functions;
+     256^3 decompress summed; the share of the 256^3 symbols within
+     +-64/512/2048/8190 of radius. Only K1's function has PyTorch calls
+     (torch.bincount and torch.nonzero), timed beside it;
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
      from radius, a constant stream, f64, codes over 32 bits) compressed and
      decompressed on the card, archives sha256-equal to the host engine's
@@ -30,7 +32,7 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      and within the bound, and every kernel launched. Wall times, where the
      encode and decode time goes, the warm decode's peak device memory, and
      the card's busy time over one warm encode and decode, split by kind
-     (torch.profiler).
+     (torch.profiler); K1 timed on each size's stream.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -197,10 +199,11 @@ def main() -> int:
                 end = e
         return total / 1e3, wall * 1e3, len(events), kinds
 
-    def device_ms(fn, reps=10):
+    def device_ms(fn, reps=10, by_kind=False):
         """Summed device time of everything one call of fn runs on the card
         (kernels, fills, copies), from torch.profiler: without the time the
-        card waits for the host inside a wrapper that reads a result back."""
+        card waits for the host inside a wrapper that reads a result back.
+        With by_kind, the same split into kernels, fills and copies."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -209,8 +212,30 @@ def main() -> int:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+        kinds = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = kind_of(e.name)
+                kinds[k] = kinds.get(k, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+        return kinds if by_kind else sum(kinds.values())
+
+    def k1_on_card(s, rad):
+        """K1's wrapper on the stream s: (ms a call, CUDA events; ms on the
+        card, and its kernels and fill alone, torch.profiler)."""
+        kinds = device_ms(lambda: ed.hist_and_literals(s, rad), by_kind=True)
+        return (event_ms(lambda: ed.hist_and_literals(s, rad)), sum(kinds.values()),
+                kinds.get("kernels", 0.0) + kinds.get("fills", 0.0))
+
+    def window_shares(s, rad):
+        """% of the stream's symbols (bin 0 aside) within +-64/512/2048/8190
+        bins of radius."""
+        d = (s[s != 0].to(torch.int64) - rad).abs()
+        return [100 * float((d <= w).sum()) / s.numel() for w in (64, 512, 2048, 8190)]
+
+    def outside_k1_window(hist, rad):
+        """Symbols (bin 0 and SENTINEL aside) outside K1's shared window."""
+        lo = max(2, rad + 1 - ed.K1_W_HALF)
+        return int(hist[2:].sum() - hist[lo:lo + 2 * ed.K1_W_HALF].sum())
 
     def max_abs_diff(a, b) -> int:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -266,26 +291,40 @@ def main() -> int:
     syn_streams = {"synthetic": syn, "synthetic, whole range": syn_wide,
                    "synthetic, codes > 32 bits": syn_deep}
     syn_streams = {k: torch.from_numpy(v).to(dev) for k, v in syn_streams.items()}
-    win_lo = max(2, radius + 1 - ed.W_HALF)
+    # K1 alone: one symbol everywhere (the most contention), every slot a
+    # literal, and no symbol in K1's shared window (every one on its cold path)
+    far_out = rng.integers(radius + ed.K1_W_HALF + 1, 2 * radius + 3, syn_n)
+    low = rng.random(syn_n) < 0.5
+    far_out[low] = rng.integers(1, radius - ed.K1_W_HALF - 1, int(low.sum()))
+    k1_only = {"constant": torch.full((num,), radius, dtype=torch.int32, device=dev),
+               "all zero": torch.zeros(syn_n, dtype=torch.int32, device=dev),
+               "all outside the shared window": torch.from_numpy(far_out.astype(np.int32)).to(dev)}
 
     k1_err = 0
-    for name, s in (("256^3 stream", stream), *syn_streams.items()):
+    for name, s in (("256^3 stream", stream), *syn_streams.items(), *k1_only.items()):
         hk, sk = ed.hist_and_literals(s, radius)
         hp, sp = ed.hist_and_literals_plain(s, radius)
         torch.cuda.synchronize()
+        hp = hp.cpu()
         err = max(max_abs_diff(hk, hp), max_abs_diff(sk, sp))
         check(err == 0 and torch.equal(hk, hp) and torch.equal(sk, sp),
               f"K1 {name}: differs from its plain version (max abs diff {err})")
         k1_err = max(k1_err, err)
-        outside = int(hk[2:].sum() - hk[win_lo:win_lo + 2 * ed.W_HALF].sum())
+        outside = outside_k1_window(hk, radius)
+        check(name != "all outside the shared window" or outside == syn_n,
+              f"K1 {name}: {outside} of {syn_n} symbols outside the shared window")
         print(f"K1 {name}: bit-equal to plain (n={s.numel()}, literals={sk.numel()}, "
               f"outside the shared window={outside})", flush=True)
+    del k1_only
+    print("share of the 256^3 symbols within +-64/512/2048/8190 of radius: "
+          + " / ".join(f"{v:.5f} %" for v in window_shares(stream, radius))
+          + f" (K1's shared window: +-{ed.K1_W_HALF})", flush=True)
 
     tables = {"256^3 stream": (stream,) + de._tree_and_tables(
-        ed.hist_and_literals(stream, radius)[0], radius, num)}
+        ed.hist_and_literals(stream, radius)[0], radius, num, dev)}
     for name, s in syn_streams.items():
         h, _ = ed.hist_and_literals(s, radius)
-        tables[name] = (s,) + de._tree_and_tables(h, radius, int(s.numel() - int(h[1])))
+        tables[name] = (s,) + de._tree_and_tables(h, radius, int(s.numel() - int(h[1])), dev)
     # random tables of codes of 1-64 bits (not a Huffman code, but every
     # length and every alignment of a code across two or three words)
     rand_lens = rng.integers(1, 65, ed.table_len(radius)).astype(np.int32)
@@ -314,12 +353,21 @@ def main() -> int:
     k2_ms, k2_plain_ms, k2_runs = paired_ms(
         lambda: ed.pack_bits(stream, tc, tl, radius, total_bits),
         lambda: ed.pack_bits_plain(stream, tc, tl, radius, total_bits))
-    k1_dev_ms = device_ms(lambda: ed.hist_and_literals(stream, radius))
+    _, k1_dev_ms, k1_kern_ms = k1_on_card(stream, radius)
     k2_dev_ms = device_ms(lambda: ed.pack_bits(stream, tc, tl, radius, total_bits))
-    print(f"K1 hist_literals at 256^3: kernel {k1_ms:.3f} ms a call, of which {k1_dev_ms:.3f} ms "
-          f"on the card (the wrapper reads a count back between its launches), plain "
-          f"{k1_plain_ms:.3f} ms (plain,kernel,kernel,plain = {[round(v, 3) for v in k1_runs]})",
-          flush=True)
+    # the library yardstick, never called by the port: a histogram of a
+    # precomputed symbol index and the positions of the zeros
+    idx64 = ed._sym_index(stream, radius).to(torch.int64)
+    bincount_ms = event_ms(lambda: torch.bincount(idx64, minlength=ed.table_len(radius)))
+    nonzero_ms = event_ms(lambda: torch.nonzero(stream == 0))
+    k1_library_ms = bincount_ms + nonzero_ms
+    del idx64
+    print(f"K1 hist_literals at 256^3: kernel {k1_ms:.4f} ms a call, of which {k1_dev_ms:.4f} ms "
+          f"on the card ({k1_kern_ms:.4f} ms kernels and fill; the wrapper reads the histogram "
+          f"back once, between its count and placement passes), plain {k1_plain_ms:.3f} ms "
+          f"(plain,kernel,kernel,plain = {[round(v, 4) for v in k1_runs]}); PyTorch calls: "
+          f"torch.bincount of the int64 symbol index {bincount_ms:.4f} ms + "
+          f"torch.nonzero(bins == 0) {nonzero_ms:.4f} ms = {k1_library_ms:.4f} ms", flush=True)
     print(f"K2+K3 pack_bits at 256^3: kernel {k2_ms:.3f} ms a call, of which {k2_dev_ms:.3f} ms "
           f"on the card (the wrapper reads the total back), plain {k2_plain_ms:.3f} ms "
           f"(plain,kernel,kernel,plain = {[round(v, 3) for v in k2_runs]})", flush=True)
@@ -583,9 +631,9 @@ def main() -> int:
     print(f"every decode kernel launch of one 256^3 decode_stream, each timed alone: "
           f"{family_ms:.3f} ms = {[round(v, 3) for v in family_per]} (count passes over "
           f"{redo256} windows, then the write phase)", flush=True)
-    print(f"bounds of the encode kernels at 256^3: K1 {k1_bound[0]:.4f} ms, K2+K3 "
-          f"{k2_bound[0]:.4f} ms, both by bytes; neither has a PyTorch call of its own "
-          f"(torch.bincount is half of K1)", flush=True)
+    print(f"bounds of the encode kernels at 256^3: K1 {k1_bound[0]:.4f} ms by {k1_bound[1]}, "
+          f"K2+K3 {k2_bound[0]:.4f} ms by {k2_bound[1]}; K2+K3 has no PyTorch call of its own",
+          flush=True)
     del st, nout, off, stream_t, tabs, idx_all, starts_all, dec_cases
     torch.cuda.empty_cache()
 
@@ -630,8 +678,7 @@ def main() -> int:
         torch_backend._resolve_anchor_stride(ec)
         h, _ = ed.hist_and_literals(stream_of(torch.from_numpy(data).to(dev), ec),
                                     ec.quantbinCnt // 2)
-        wl = max(2, ec.quantbinCnt // 2 + 1 - ed.W_HALF)
-        outside = int(h[2:].sum() - h[wl:wl + 2 * ed.W_HALF].sum())
+        outside = outside_k1_window(h, ec.quantbinCnt // 2)
         how = (f"{stats['nwin']} windows, {stats['passes']} scan passes" if stats
                else "a constant stream: a fill" if dconf.cmprAlgo == szp.ALGO.INTERP
                else f"stored as {dconf.cmprAlgo.name}")
@@ -661,7 +708,7 @@ def main() -> int:
     ds[~at_anchor] = torch.from_numpy(deep_bins[edge_rng.permutation(deep_bins.size)]).to(dev)
     hist, slots = ed.hist_and_literals(ds, radius)
     check(torch.equal(slots.to(torch.int64), anchors), "the anchors are not the literals")
-    tree, nbits, tc, tl = de._tree_and_tables(hist, radius, deep_n)
+    tree, nbits, tc, tl = de._tree_and_tables(hist, radius, deep_n, dev)
     check(int(tl.max()) > 32, "the deep archive's codes do not exceed 32 bits")
     payload = runtime.interp_seal_packed(
         dconf, tree, de._stream_bytes(ed.pack_bits(ds, tc, tl, radius, nbits), nbits), nbits,
@@ -721,7 +768,7 @@ def main() -> int:
             lambda: szp.decompress(blob_native, device="cuda"))
         dec_peak = torch.cuda.max_memory_allocated() - held
         torch.cuda.reset_peak_memory_stats()
-        check(enc_seen["hist_literals"] >= 1 and enc_seen["pack_bits"] >= 1,
+        check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] >= 1,
               f"{n}^3 compress launched {enc_seen}")
         check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] >= 1,
               f"{n}^3 decompress launched {dec_seen}")
@@ -762,7 +809,7 @@ def main() -> int:
         rad = c.quantbinCnt // 2
         (hist, slots), k1_s = sync_time(lambda: ed.hist_and_literals(stream, rad))
         (tree, nbits, tc, tl), tree_s = sync_time(
-            lambda: de._tree_and_tables(hist, rad, stream.numel()))
+            lambda: de._tree_and_tables(hist, rad, stream.numel(), dev))
         words, k2_s = sync_time(lambda: ed.pack_bits(stream, tc, tl, rad, nbits))
         (bits, unpred), d2h_s = sync_time(lambda: (
             de._stream_bytes(words, nbits),
@@ -775,6 +822,13 @@ def main() -> int:
               f"device passes {pass_s:.3f} (events {pass_ms / 1e3:.3f}), stream gather "
               f"{gather_s:.3f}, K1 {k1_s:.3f}, host tree {tree_s:.3f}, K2+K3 {k2_s:.3f}, "
               f"D2H {d2h_s:.3f}, host seal {seal_s:.3f}", flush=True)
+        k1_call, k1_dev, k1_kern = k1_on_card(stream, rad)
+        k1_bnd = bound(4 * stream.numel() + 4 * ed.table_len(rad) + 4 * slots.numel(),
+                       4 * stream.numel())
+        print(f"  K1 at {n}^3: {k1_call:.4f} ms a call, {k1_dev:.4f} ms on the card "
+              f"({k1_kern:.4f} ms kernels and fill), bound {k1_bnd[0]:.4f} ms by {k1_bnd[1]}; "
+              f"share of the symbols within +-64/512/2048/8190 of radius: "
+              + " / ".join(f"{v:.5f} %" for v in window_shares(stream, rad)), flush=True)
         del x, bins_list, stream, hist, slots, words, perm
 
         # where the decode time goes: the stages of decompress, one by one
@@ -861,7 +915,7 @@ def main() -> int:
 
     kernels = [
         row("hist_literals", "hist_literals.cu", "sz3_tpu/ops/entropy_device.py:124", k1_err,
-            k1_ms, k1_plain_ms, k1_bound, None, device_ms=k1_dev_ms),
+            k1_ms, k1_plain_ms, k1_bound, k1_library_ms, device_ms=k1_dev_ms),
         row("pack_bits", "pack_bits.cu", "sz3_tpu/ops/entropy_device.py:308", k2_err, k2_ms,
             k2_plain_ms, k2_bound, None, also_replaces="sz3_tpu/ops/entropy_device.py:484",
             device_ms=k2_dev_ms),

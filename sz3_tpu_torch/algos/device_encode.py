@@ -3,9 +3,10 @@
 
   device: predict+quantize passes (ops/interp_fast) -> bins grid -> stream
           order through the cached permutation (ops/stream_order) ->
-          histogram + literal slots (K1, ops/entropy_device)
+          histogram (K1's count pass, ops/entropy_device), read back once
   host:   Huffman tree with the reference's tie-breaking (runtime.huff_table),
-          exact total bit count from histogram x code lengths, code tables
+          exact total bit count from histogram x code lengths, code tables,
+          while the card places the literal slots (K1's placement pass)
   device: code lookup + bit packing (K2+K3, ops/entropy_device)
   host:   payload framing + zstd (runtime.interp_seal_packed)
 
@@ -58,11 +59,11 @@ def _huffman_table(offset: int, freq: np.ndarray):
     return codes.astype(np.uint64), lens, tree
 
 
-def _tree_and_tables(hist: torch.Tensor, radius: int, num: int):
-    """Exact histogram -> reference Huffman tree -> code tables indexed by
-    symbol index. Returns (tree bytes, total bits, codes, lens) with the
-    tables on the histogram's device (codes int64, lens int32)."""
-    h = hist.cpu().numpy().astype(np.int64)
+def _tree_and_tables(hist: torch.Tensor, radius: int, num: int, device):
+    """Exact histogram, on the host -> reference Huffman tree -> code tables
+    indexed by symbol index. Returns (tree bytes, total bits, codes, lens)
+    with the tables on `device` (codes int64, lens int32)."""
+    h = hist.numpy().astype(np.int64)
     if h[-1]:
         raise ValueError(f"{h[-1]} bins outside [0, {2 * radius}): not a quantizer's output")
     by_sym = np.concatenate([h[:1], h[2:2 * radius + 1]])   # count of symbol s at [s]
@@ -83,9 +84,8 @@ def _tree_and_tables(hist: torch.Tensor, radius: int, num: int):
     tl = np.zeros(ed.table_len(radius), np.int32)
     tc[idx] = codes[:hi - lo + 1]
     tl[idx] = lens[:hi - lo + 1]
-    dev = hist.device
-    return (tree, total_bits, torch.from_numpy(tc.view(np.int64)).to(dev),
-            torch.from_numpy(tl).to(dev))
+    return (tree, total_bits, torch.from_numpy(tc.view(np.int64)).to(device),
+            torch.from_numpy(tl).to(device))
 
 
 def _stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
@@ -105,8 +105,8 @@ def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
     grid = bins_to_grid(bins_list, plan, b0, x.device)
     perm = perm_for(conf, x.device)
     bins_stream = stream_order.to_stream(grid, perm)
-    hist, slots = ed.hist_and_literals(bins_stream, plan.radius)
-    tree, total_bits, tc, tl = _tree_and_tables(hist, plan.radius, num)
+    hist, slots = ed.hist_and_literals(bins_stream, plan.radius)   # hist on the host
+    tree, total_bits, tc, tl = _tree_and_tables(hist, plan.radius, num, x.device)
     words = ed.pack_bits(bins_stream, tc, tl, plan.radius, total_bits)
     bits_bytes = _stream_bytes(words, total_bits)
     unpred = stream_order.literal_values(x, perm, slots).cpu().numpy()

@@ -143,9 +143,9 @@ def kernels() -> C.CDLL:
         lib = C.CDLL(str(build_kernels()))
         p, i32, i64 = C.c_void_p, C.c_int, C.c_longlong
         lib.szt_hist_count.restype = i32
-        lib.szt_hist_count.argtypes = [p, i64, i32, i32, i64, i32, p, p, p]
+        lib.szt_hist_count.argtypes = [p, i64, i32, i32, i32, p, p, p]
         lib.szt_literal_slots.restype = i32
-        lib.szt_literal_slots.argtypes = [p, i64, i64, i32, p, p, p]
+        lib.szt_literal_slots.argtypes = [p, i64, i32, p, p, p]
         lib.szt_pack_bits.restype = i32
         lib.szt_pack_bits.argtypes = [p, i64, i32, p, p, p, i64, i32, p, i64, p, p]
         lib.szt_huff_scan.restype = i32

@@ -10,9 +10,6 @@ namespace szt_cuda {
 
 constexpr int kThreads = 256;          // block size of every entropy kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kWHalf = 8190;           // half-width of K1's shared window around radius
-constexpr int kWin = 2 * kWHalf;       // window length, in symbol indices
-constexpr int kShared = 2 + kWin;      // K1's shared slots: bin 0, SENTINEL, window
 constexpr int kSentinel = -1;
 
 // bin -> symbol index, for the bins of a quantizer of radius r (n_sym = 2r,

@@ -6,8 +6,10 @@ Two kernels turn the stream-order bins into the reference Huffman bitstream
 codes) without the bins leaving the device:
 
   hist_and_literals  csrc/hist_literals.cu, replaces _hist_kernel (K1): the
-                     exact histogram over the symbol-index space, and the
-                     stream slots of the bin==0 symbols in stream order.
+                     exact histogram over the symbol-index space, read back
+                     to the host once, and the stream slots of the bin==0
+                     symbols in stream order, placed on the card while the
+                     host builds the Huffman tree from that histogram.
   pack_bits          csrc/pack_bits.cu, replaces _pack_kernel (K2) and
                      _splice_kernel (K3): code lookup, an int64 exclusive scan
                      of the code lengths, and the codes joined into words in
@@ -34,12 +36,15 @@ import torch
 
 from ..build import kernels
 
-W_HALF = 8190                       # half-width of K1's shared-memory window
+W_HALF = 8190                       # half-width of the JAX package's histogram window
+K1_W_HALF = 2048                    # half-width of K1's shared window (kWHalf in its source)
 SENTINEL = -1
 
 _THREADS = 256                      # block size of both kernels (csrc/*.cu)
 _MAX_BLOCKS = 1024
 _PACK_TILE = _THREADS * 8           # symbols of one tile of csrc/pack_bits.cu
+_K1_TILE = _THREADS * 16            # symbols of one tile of csrc/hist_literals.cu (kTile)
+_K1_BLOCKS_PER_SM = 4               # K1's persistent blocks on each SM
 
 
 def table_len(radius: int) -> int:
@@ -91,26 +96,45 @@ def hist_and_literals_plain(bins: torch.Tensor, radius: int):
     return hist.to(torch.int32), slots
 
 
+def _k1_grid(n: int, sms: int):
+    """(tiles, persistent blocks) of K1 for a stream of n symbols on a card
+    with `sms` SMs: tile t holds stream slots [t * _K1_TILE, (t + 1) *
+    _K1_TILE), and block b takes tiles [b * tiles // blocks, (b + 1) * tiles
+    // blocks)."""
+    tiles = -(-n // _K1_TILE)
+    return tiles, min(tiles, sms * _K1_BLOCKS_PER_SM)
+
+
 def hist_and_literals(bins: torch.Tensor, radius: int):
     """Stream-order bins (1-D int32) -> (histogram (table_len(radius),) int32
-    over the symbol index, the stream slots of the bin==0 symbols in stream
-    order, int32)."""
+    over the symbol index, on the host, the stream slots of the bin==0
+    symbols in stream order, int32, on the bins' device).
+
+    On the card the count pass leaves the histogram in device memory and
+    queues its copy to the host; the wrapper waits for it once (its entry 0
+    is the literal count, which sizes the slots) and queues the placement
+    pass before it returns, so the card places the literals while the caller
+    works on the histogram."""
     _check_bins(bins, radius)
     if bins.device.type == "cpu":
         return hist_and_literals_plain(bins, radius)
     n = bins.numel()
-    blocks, per_block = _partition(n)
-    hist = torch.zeros(table_len(radius), dtype=torch.int32, device=bins.device)
-    offsets = torch.empty(blocks + 1, dtype=torch.int32, device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
-    win_lo = max(2, radius + 1 - W_HALF)          # the window centres on bin radius
+    tiles, blocks = _k1_grid(n, torch.cuda.get_device_properties(bins.device).multi_processor_count)
+    tl = table_len(radius)
+    # the histogram, then the count of zeros of each tile and of each block
+    # (zeroed by the count pass)
+    buf = torch.empty(tl + tiles + blocks, dtype=torch.int32, device=bins.device)
+    hist = torch.empty(tl, dtype=torch.int32, pin_memory=True)
+    stream = torch.cuda.current_stream(bins.device)
+    win_lo = max(2, radius + 1 - K1_W_HALF)       # the window centres on bin radius
     lib = kernels()
-    _ok(lib.szt_hist_count(bins.data_ptr(), n, 2 * radius, win_lo, per_block, blocks,
-                           hist.data_ptr(), offsets.data_ptr(), stream), "szt_hist_count")
-    nlit = int(offsets[blocks].item())
-    slots = torch.empty(nlit, dtype=torch.int32, device=bins.device)
-    _ok(lib.szt_literal_slots(bins.data_ptr(), n, per_block, blocks, offsets.data_ptr(),
-                              slots.data_ptr(), stream), "szt_literal_slots")
+    _ok(lib.szt_hist_count(bins.data_ptr(), n, 2 * radius, win_lo, blocks, buf.data_ptr(),
+                           hist.data_ptr(), stream.cuda_stream), "szt_hist_count")
+    stream.synchronize()                          # the one read-back
+    slots = torch.empty(int(hist[0]), dtype=torch.int32, device=bins.device)
+    if slots.numel():
+        _ok(lib.szt_literal_slots(bins.data_ptr(), n, blocks, buf[tl:].data_ptr(),
+                                  slots.data_ptr(), stream.cuda_stream), "szt_literal_slots")
     hist_and_literals.launches += 1
     return hist, slots
 

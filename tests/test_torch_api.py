@@ -161,7 +161,7 @@ def test_size1_dims():
 # the device-entropy cases of tests/test_device_entropy.py (anchor stride 32,
 # 128 in 2D). The JAX package sends (65, 33, 40) at 1e-4 to the host (some
 # bins fall outside its histogram window); the port's encode keeps it, and
-# `wide` says that some symbols lie outside K1's shared-memory window
+# `wide` says that some symbols lie outside that window (ted.W_HALF)
 ENTROPY_CASES = [((40, 33, 27), 1e-3, 1, False), ((64, 64, 64), 1e-3, 1, False),
                  ((65, 33, 40), 1e-4, 1, True), ((40, 33, 27), 1e-3, 0, False),
                  ((129, 129), 1e-3, 1, False), ((33, 34, 35, 20), 1e-3, 1, False)]

@@ -38,24 +38,67 @@ def _stream(n, seed, spread=30.0, zeros=0.01, wide=0.0, sentinels=0.0):
     return b
 
 
+def _k1_matches_plain(b, radius):
+    """K1 on the card equals its plain version; the histogram comes back on
+    the host, the slots stay on the card."""
+    h, s = ted.hist_and_literals(b, radius)
+    hp, sp = ted.hist_and_literals_plain(b, radius)
+    assert h.device.type == "cpu" and s.device == b.device
+    assert torch.equal(h, hp.cpu()) and torch.equal(s, sp)
+
+
 @pytest.mark.parametrize("n", [1, 255, 4097, 3_000_017])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hist_and_literals_matches_plain(dev, n, seed):
     b = torch.from_numpy(_stream(n, seed, wide=0.01 * seed, sentinels=0.01)).to(dev)
-    h, s = ted.hist_and_literals(b, RADIUS)
-    hp, sp = ted.hist_and_literals_plain(b, RADIUS)
-    assert torch.equal(h, hp) and torch.equal(s, sp)
+    _k1_matches_plain(b, RADIUS)
+    if n > 1:               # bins that do not start on a 16-byte boundary
+        _k1_matches_plain(b[1:], RADIUS)
 
 
 @pytest.mark.parametrize("radius", [1, 100, 8000, 1 << 20])
 def test_hist_window_edges(dev, radius):
-    """Small radii put the shared window against the bottom of the index
-    space; large ones leave most symbols to the global atomics."""
+    """Small radii put the shared window over the whole index space; large
+    ones leave most symbols to the cold path's global atomics."""
     rng = np.random.default_rng(radius)
     b = torch.from_numpy(rng.integers(-2, 2 * radius + 2, 200_003).astype(np.int32)).to(dev)
-    h, s = ted.hist_and_literals(b, radius)
-    hp, sp = ted.hist_and_literals_plain(b, radius)
-    assert torch.equal(h, hp) and torch.equal(s, sp)
+    _k1_matches_plain(b, radius)
+
+
+def _k1_stream(name, n, rng):
+    if name == "constant":                  # one symbol: the most contention
+        return np.full(n, RADIUS, np.int32)
+    if name == "all_zero":                  # every slot a literal
+        return np.zeros(n, np.int32)
+    if name == "alternating":
+        return np.where(np.arange(n) % 2 == 0, RADIUS, RADIUS + 1).astype(np.int32)
+    if name == "all_outside":               # no symbol in the shared window
+        near = RADIUS - ted.W_HALF
+        b = rng.integers(RADIUS + ted.W_HALF + 1, 2 * RADIUS + 5, n)
+        low = rng.random(n) < 0.5
+        b[low] = rng.integers(-4, near - 1, int(low.sum()))
+        b[(b == 0) | (b == ted.SENTINEL)] = 2 * RADIUS + 3      # the invalid bucket
+        return b.astype(np.int32)
+    return _stream(n, int(rng.integers(1 << 30)), spread=300.0, sentinels=0.01)
+
+
+@pytest.mark.parametrize("name", ["constant", "all_zero", "alternating", "all_outside"])
+def test_hist_and_literals_edge_streams(dev, name):
+    _k1_matches_plain(torch.from_numpy(_k1_stream(name, 3_000_017, np.random.default_rng(2)))
+                      .to(dev), RADIUS)
+
+
+@pytest.mark.parametrize("unit,delta", [("one", 0), ("tile", -1), ("tile", 0), ("tile", 1),
+                                        ("grid", -1), ("grid", 0), ("grid", 1)])
+@pytest.mark.parametrize("name", ["constant", "all_zero", "peaked"])
+def test_hist_and_literals_tile_and_grid_edges(dev, unit, delta, name):
+    """n = 1, n at a tile's end and at the end of one round of the
+    persistent blocks, each +-1."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"one": 1, "tile": ted._K1_TILE,
+         "grid": ted._k1_grid(1 << 30, sms)[1] * ted._K1_TILE}[unit] + delta
+    _k1_matches_plain(torch.from_numpy(_k1_stream(name, n, np.random.default_rng(n))).to(dev),
+                      RADIUS)
 
 
 @pytest.mark.parametrize("n,spread,wide", [(1, 30.0, 0.0), (4097, 30.0, 0.0),
@@ -65,7 +108,7 @@ def test_pack_bits_matches_plain(dev, n, spread, wide):
     b = torch.from_numpy(_stream(n, 5, spread=spread, wide=wide, sentinels=0.01)).to(dev)
     hist, _ = ted.hist_and_literals(b, RADIUS)
     _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS,
-                                                int((b != ted.SENTINEL).sum()))
+                                                int((b != ted.SENTINEL).sum()), dev)
     w = ted.pack_bits(b, tc, tl, RADIUS, total)
     assert torch.equal(w, ted.pack_bits_plain(b, tc, tl, RADIUS, total))
 
@@ -107,13 +150,66 @@ def test_launches_count_and_no_cpu_fallback(dev):
     b = torch.from_numpy(_stream(10_000, 3)).to(dev)
     before = (ted.hist_and_literals.launches, ted.pack_bits.launches)
     hist, _ = ted.hist_and_literals(b, RADIUS)
-    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, b.numel())
+    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, b.numel(), dev)
     ted.pack_bits(b, tc, tl, RADIUS, total)
     assert (ted.hist_and_literals.launches, ted.pack_bits.launches) == \
         (before[0] + 1, before[1] + 1)
     # the plain versions never count
     ted.hist_and_literals(b.cpu(), RADIUS)
     assert ted.hist_and_literals.launches == before[0] + 1
+
+
+def test_compress_launches_k1_once_and_reads_it_back_once(dev, monkeypatch):
+    """A main-path compress launches K1 once and reads its results back to
+    the host once: inside K1's wrapper and the tree build that takes its
+    histogram, the host waits for the card once, and no CUDA tensor is read
+    back any other way."""
+    counts = {"waits": 0, "other read-backs": 0}
+    inside = [False]
+
+    def counted(real):
+        def wait(*a, **k):
+            counts["waits"] += inside[0]
+            return real(*a, **k)
+        return wait
+
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", counted(torch.cuda.Stream.synchronize))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted(torch.cuda.Event.synchronize))
+    monkeypatch.setattr(torch.cuda, "synchronize", counted(torch.cuda.synchronize))
+    for name in ("cpu", "item", "tolist", "numpy", "to", "__int__", "__index__", "__bool__",
+                 "__float__"):
+        def spy(self, *a, _real=getattr(torch.Tensor, name), **k):
+            out = _real(self, *a, **k)
+            if inside[0] and self.is_cuda and not (isinstance(out, torch.Tensor) and out.is_cuda):
+                counts["other read-backs"] += 1
+            return out
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+
+    def watched(real):
+        def call(*a, **k):
+            inside[0] = True
+            try:
+                return real(*a, **k)
+            finally:
+                inside[0] = False
+        return call
+
+    class EntropyDevice:            # the encode's `ed`, with K1's wrapper watched
+        hist_and_literals = staticmethod(watched(ted.hist_and_literals))
+
+        def __getattr__(self, name):
+            return getattr(ted, name)
+
+    monkeypatch.setattr(tde, "ed", EntropyDevice())
+    monkeypatch.setattr(tde, "_tree_and_tables", watched(tde._tree_and_tables))
+    rng = np.random.default_rng(4)
+    x = (np.cumsum(rng.standard_normal((64, 64, 64)).astype(np.float32), axis=-1) * 0.1)
+    launches = ted.hist_and_literals.launches
+    szp.compress(x, Config(cmprAlgo=ALGO.INTERP, absErrorBound=1e-3), device=dev)
+    monkeypatch.undo()
+    assert counts == {"waits": 1, "other read-backs": 0}
+    assert ted.hist_and_literals.launches == launches + 1
 
 
 @pytest.mark.parametrize("shape,algo,eb", [((33, 37, 41), 1, 1e-3), ((64, 64, 64), 0, 1e-3),

@@ -6,6 +6,8 @@ on a CUDA card).
 K1 = hist_and_literals (histogram + literal slots), K2+K3 = pack_bits
 (code lookup + bit packing)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -90,7 +92,7 @@ def test_hist_and_literals_matches_pallas(jax_results, key):
 def test_code_tables_match_jax(jax_results):
     words_j, total_bits_j, tc_j, tl_j, num_b = jax_results["b_k2"]
     hist, _ = ted.hist_and_literals(torch.from_numpy(jax_results["b"]), RADIUS)
-    _tree, total_bits, tc, tl = tde._tree_and_tables(hist, RADIUS, num_b)
+    _tree, total_bits, tc, tl = tde._tree_and_tables(hist, RADIUS, num_b, "cpu")
     assert total_bits == total_bits_j
     assert np.array_equal(tc.numpy(), _as_port_table(tc_j, np.int64))
     assert np.array_equal(tl.numpy(), _as_port_table(tl_j, np.int32))
@@ -209,6 +211,40 @@ def test_partition_covers_the_stream_in_whole_tiles(n):
         assert (blocks - 1) * per_block < n <= blocks * per_block
 
 
+@pytest.mark.parametrize("n", [1, ted._K1_TILE - 1, ted._K1_TILE, ted._K1_TILE + 1, 1 << 24])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_k1_grid_covers_the_stream_once_in_whole_tiles(n, sms):
+    """K1's tiles cover stream slots [0, n) once, its persistent blocks take
+    every tile once, in order, at least one each (block b: tiles [b * tiles
+    // blocks, (b + 1) * tiles // blocks), as csrc/hist_literals.cu's
+    block_tiles), and a tile's 16 slots per thread (load q of thread x:
+    q * 1024 + 4x + 0..3, as its first_of) cover the tile once."""
+    tiles, blocks = ted._k1_grid(n, sms)
+    assert (tiles - 1) * ted._K1_TILE < n <= tiles * ted._K1_TILE
+    assert 1 <= blocks == min(tiles, sms * ted._K1_BLOCKS_PER_SM)
+    bounds = [b * tiles // blocks for b in range(blocks + 1)]
+    assert bounds[0] == 0 and bounds[-1] == tiles
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    q, x, k = np.meshgrid(np.arange(ted._K1_TILE // (4 * ted._THREADS)),
+                          np.arange(ted._THREADS), np.arange(4), indexing="ij")
+    in_tile = (q * 4 * ted._THREADS + 4 * x + k).ravel()
+    assert np.array_equal(np.sort(in_tile), np.arange(ted._K1_TILE))
+
+
+def test_k1_constants_match_the_kernel_source():
+    """The wrapper sizes K1's buffers by its tile and centres its window by
+    its half-width: both must be the kernel's."""
+    from pathlib import Path
+
+    src = (Path(ted.__file__).parents[1] / "csrc" / "hist_literals.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWHalf") == ted.K1_W_HALF
+    assert 4 * const("kLoads") * ted._THREADS == ted._K1_TILE
+
+
 def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         ted.hist_and_literals(torch.zeros(10, dtype=torch.int64), RADIUS)
@@ -236,16 +272,16 @@ def test_wide_and_deep_symbols_stay_on_device():
     quantizer cannot write raise."""
     b = torch.tensor([RADIUS + ted.W_HALF + 5, RADIUS, 1, 2 * RADIUS - 1, 0], dtype=torch.int32)
     hist, _ = ted.hist_and_literals(b, RADIUS)
-    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, 5)
+    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, 5, "cpu")
     assert int((tl > 0).sum()) == 5 and total == int(tl.sum())
     bad = torch.tensor([RADIUS, 2 * RADIUS], dtype=torch.int32)
     with pytest.raises(ValueError, match="outside"):
-        tde._tree_and_tables(ted.hist_and_literals(bad, RADIUS)[0], RADIUS, 2)
+        tde._tree_and_tables(ted.hist_and_literals(bad, RADIUS)[0], RADIUS, 2, "cpu")
     # Fibonacci frequencies give a Huffman tree deeper than 32 levels
     fib = _fib(40)
     hist = torch.zeros(ted.table_len(RADIUS), dtype=torch.int32)
     hist[RADIUS + 1:RADIUS + 41] = torch.tensor(fib, dtype=torch.int32)
-    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, sum(fib))
+    _tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, sum(fib), "cpu")
     assert int(tl.max()) == 39 and total == sum(f * int(n) for f, n in
                                                 zip(fib, tl[RADIUS + 1:RADIUS + 41]))
 
@@ -263,7 +299,7 @@ def test_deep_tree_matches_host_engine():
     bins = torch.from_numpy(b)
     hist, slots = ted.hist_and_literals(bins, RADIUS)
     assert slots.numel() == 0
-    tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, b.size)
+    tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, b.size, "cpu")
     assert int(tl.max()) == 33
     words = ted.pack_bits(bins, tc, tl, RADIUS, total)
     bits = tde._stream_bytes(words, total)
