@@ -20,11 +20,19 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      L2 cache flushed before each launch, and every decode launch of one
      256^3 decompress summed; the share of the 256^3 symbols within
      +-64/512/2048/8190 of radius. Only K1's function has PyTorch calls
-     (torch.bincount and torch.nonzero), timed beside it;
+     (torch.bincount and torch.nonzero), timed beside it. The LORENZO_REG
+     element sweep (lorenzo_sweep) in both forms, on the 256^3 field's own
+     inputs and on a synthetic 253x255x257 grid (random first-order,
+     second-order and kept cells, bins across the quantizer's range, NaN,
+     Inf and subnormal values), with its bytes bound and its dependency
+     bound (planes times one empty dependent launch, measured here);
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
      from radius, a constant stream, f64, codes over 32 bits) compressed and
      decompressed on the card, archives sha256-equal to the host engine's
-     and decodes bit-equal to its decode;
+     and decodes bit-equal to its decode; for LORENZO_REG a constant field,
+     tail blocks of extent 1 and 2, the speculation-flip field (passes
+     printed), the three golden archives, and the 1D default field, which
+     must go to the host engine without a kernel launch;
   4. the main path: sz3_tpu_torch.compress / decompress on the card at
      ABS 1e-3 with the default Config (tuner on), on bench.nyx_like(256) and
      nyx_like(512), and an f64 round trip at 256^3. The archives must be
@@ -32,7 +40,13 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      and within the bound, and every kernel launched. Wall times, where the
      encode and decode time goes, the warm decode's peak device memory, and
      the card's busy time over one warm encode and decode, split by kind
-     (torch.profiler); K1 timed on each size's stream.
+     (torch.profiler); K1 timed on each size's stream;
+  5. the LORENZO_REG path: compress / decompress with cmprAlgo LORENZO_REG
+     (roster Lorenzo + regression, blockSize 6) at ABS 1e-3 on the same two
+     fields, against the host engine as in phase 4, every kernel launched
+     on it (counted over these calls alone), walls, each stage of the
+     encode and the decode, the certification passes, peak device memory
+     of a warm encode and decode, and the busy share.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -41,6 +55,7 @@ without the repository beside it, the script prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -108,6 +123,9 @@ def main() -> int:
     from sz3_tpu_torch.algos import torch_backend
     from sz3_tpu_torch.algos.huffman import build_table
     from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import blockwise_layout as bl
+    from sz3_tpu_torch.ops import blockwise_wavefront as wf
+    from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
     from sz3_tpu_torch.ops import entropy_decode as dec
     from sz3_tpu_torch.ops import entropy_device as ed
     from sz3_tpu_torch.ops import stream_order
@@ -258,6 +276,51 @@ def main() -> int:
         bins_list, b0, _ = encode_grid_fast(x, plan)
         return stream_order.to_stream(bins_to_grid(bins_list, plan, b0, dev),
                                       de.perm_for(conf, dev))
+
+    def lr_conf(eb=EB):
+        return szp.Config(cmprAlgo=szp.ALGO.LORENZO_REG, absErrorBound=eb)
+
+    @contextlib.contextmanager
+    def timed(spec):
+        """Every call of each (module, attribute, stage) in `spec` timed
+        between two synchronisations; yields {stage: [seconds per call]}. A
+        wrapper stands in for the function while the block runs, so a
+        kernel's own launch count is not kept then."""
+        stages = {}
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in spec]
+
+        def wrap(fn, stage):
+            def inner(*a, **k):
+                out, sec = sync_time(lambda: fn(*a, **k))
+                stages.setdefault(stage, []).append(sec)
+                return out
+            inner.launches = 0
+            return inner
+
+        for (mod, name, fn), (_, _, stage) in zip(saved, spec):
+            setattr(mod, name, wrap(fn, stage))
+        try:
+            yield stages
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    @contextlib.contextmanager
+    def captured(mod, name):
+        """Copies of the arguments of each call of mod.name, the last call's
+        kept."""
+        fn = getattr(mod, name)
+        seen = {}
+
+        def inner(*a, **k):
+            seen["args"] = [v.clone() if isinstance(v, torch.Tensor) else v for v in a]
+            return fn(*a, **k)
+
+        setattr(mod, name, inner)
+        try:
+            yield seen
+        finally:
+            setattr(mod, name, fn)
 
     fields = {}
     native = {}
@@ -637,6 +700,103 @@ def main() -> int:
     del st, nout, off, stream_t, tabs, idx_all, starts_all, dec_cases
     torch.cuda.empty_cache()
 
+    # the element sweep of LORENZO_REG (lorenzo_sweep.cu) in both forms: on
+    # the 256^3 field's own inputs, captured from one encode and one decode,
+    # and on a synthetic grid that is not a multiple of 6 per axis
+    native_lr = {256: sync_time(lambda: native_compress(fields[256], lr_conf()))}
+    with captured(wfe, "sweep_encode") as enc_in:
+        szp.compress(fields[256], lr_conf(), device="cuda")
+    with captured(wf, "sweep_decode") as dec_in:
+        szp.decompress(native_lr[256][0], device="cuda")
+    rec_e, types_e, orig_e, eb_e, rad_e = enc_in["args"]
+    rec_d, types_d, bins_d, lits_d, eb_d, rad_d = dec_in["args"]
+    syn_shape = (253, 255, 257)
+    srng = np.random.default_rng(5)
+    s_types = srng.integers(0, 3, syn_shape).astype(np.uint8)
+    s_bins = srng.integers(1, 2 * radius, syn_shape).astype(np.int32)
+    s_bins[srng.random(syn_shape) < 0.05] = 0
+    s_vals = (np.cumsum(srng.standard_normal(syn_shape), axis=2) * 0.01).astype(np.float32)
+    sflat = s_vals.reshape(-1)
+    sflat[::97] = np.nan
+    sflat[5::131] = np.inf
+    sflat[7::137] = -np.inf
+    sflat[11::139] = np.float32(3e-39)
+    s_geo = bl.Geometry(syn_shape, syn_shape, syn_shape)
+    s_rec = wf.padded_grid(s_geo, torch.from_numpy(
+        np.where(s_types == bl.T_KEEP, s_vals + 0.5, 0).astype(np.float32)).to(dev))
+    s_types, s_bins, s_vals = (torch.from_numpy(a).to(dev) for a in (s_types, s_bins, s_vals))
+
+    def bits_diff(a, b) -> int:
+        return max_abs_diff(a.view(torch.int32), b.view(torch.int32))
+
+    sweep_cases = {
+        "256^3 encode": ("encode", rec_e, types_e, orig_e, None, eb_e, rad_e),
+        "256^3 decode": ("decode", rec_d, types_d, lits_d, bins_d, eb_d, rad_d),
+        "253x255x257 synthetic, encode": ("encode", s_rec, s_types, s_vals, None, EB, radius),
+        "253x255x257 synthetic, decode": ("decode", s_rec, s_types, s_vals, s_bins, EB, radius),
+    }
+    sweep_err = 0
+    for name, (form, rec0, types_t, vals, bins_t, eb_s, rad_s) in sweep_cases.items():
+        rk, rp = rec0.clone(), rec0.clone()
+        if form == "encode":
+            bk = wfe.sweep_encode(rk, types_t, vals, eb_s, rad_s)
+            bp = wfe.sweep_encode_plain(rp, types_t, vals, eb_s, rad_s)
+            torch.cuda.synchronize()
+            err = max(bits_diff(rk, rp), max_abs_diff(bk, bp))
+        else:
+            wf.sweep_decode(rk, types_t, bins_t, vals, eb_s, rad_s)
+            wf.sweep_decode_plain(rp, types_t, bins_t, vals, eb_s, rad_s)
+            torch.cuda.synchronize()
+            err = bits_diff(rk, rp)
+        check(err == 0, f"lorenzo_sweep {name}: differs from its plain version (max abs diff "
+                        f"{err})")
+        sweep_err = max(sweep_err, err)
+        kinds = [int((types_t == k).sum()) for k in (bl.T_L1, bl.T_L2, bl.T_KEEP)]
+        print(f"lorenzo_sweep {name}: bit-equal to plain ({tuple(types_t.shape)} grid, "
+              f"L1/L2/KEEP cells {kinds})", flush=True)
+        del rk, rp
+    check(bool((s_types == bl.T_L2).any()), "no L2 cell in the synthetic sweep")
+
+    # times at 256^3, order plain, kernel, kernel, plain; the sweep runs in
+    # place, so each form works on a scratch copy of its inputs
+    scratch = rec_d.clone()
+    swd_ms, swd_plain_ms, swd_runs = paired_ms(
+        lambda: wf.sweep_decode(scratch, types_d, bins_d, lits_d, eb_d, rad_d),
+        lambda: wf.sweep_decode_plain(scratch, types_d, bins_d, lits_d, eb_d, rad_d),
+        plain_reps=1)
+    scratch = rec_e.clone()
+    swe_ms, swe_plain_ms, swe_runs = paired_ms(
+        lambda: wfe.sweep_encode(scratch, types_e, orig_e, eb_e, rad_e),
+        lambda: wfe.sweep_encode_plain(scratch, types_e, orig_e, eb_e, rad_e), plain_reps=1)
+    del scratch
+    # one empty dependent launch: the floor of each of the sweep's launches
+    empty_ms = event_ms(lambda: torch.cuda._sleep(0), reps=1000)
+    gx, gy, gz = types_d.shape
+    planes = gx + gy + gz - 2
+    ncell = types_d.numel()
+    npad = rec_d.numel()
+    n1 = [int((t == bl.T_L1).sum()) for t in (types_d, types_e)]
+    n2 = [int((t == bl.T_L2).sum()) for t in (types_d, types_e)]
+    # bytes: the padded reconstruction read and written once, the types (1
+    # byte), the bins and the literals or originals (4 bytes each) once.
+    # Operations: a first-order cell 7 stencil adds, a second-order one 51
+    # (26 terms, 25 of them scaled); recover 5 more, quantize 16 more
+    swd_bound = bound(8 * npad + 9 * ncell, 12 * n1[0] + 56 * n2[0])
+    swe_bound = bound(8 * npad + 9 * ncell, 23 * n1[1] + 67 * n2[1])
+    sw_dep_ms = planes * empty_ms
+    print(f"lorenzo_sweep at 256^3 (grid {gx}x{gy}x{gz}, {planes} planes, one launch each; "
+          f"L1 cells decode/encode {n1}, L2 {n2}): decode kernel {swd_ms:.4f} ms, plain "
+          f"{swd_plain_ms:.2f} ms (plain,kernel,kernel,plain = {[round(v, 4) for v in swd_runs]}); "
+          f"encode kernel {swe_ms:.4f} ms, plain {swe_plain_ms:.2f} ms ("
+          f"{[round(v, 4) for v in swe_runs]}); bound by bytes or operations: decode "
+          f"{swd_bound[0]:.4f} ms by {swd_bound[1]}, encode {swe_bound[0]:.4f} ms by "
+          f"{swe_bound[1]}; dependency bound {planes} x {empty_ms * 1e3:.3f} us (one empty "
+          f"dependent launch, this card) = {sw_dep_ms:.4f} ms; no PyTorch call computes it",
+          flush=True)
+    del enc_in, dec_in, rec_e, types_e, orig_e, rec_d, types_d, bins_d, lits_d, sweep_cases
+    del s_rec, s_types, s_bins, s_vals
+    torch.cuda.empty_cache()
+
     stamp("phase 2 done")
 
     # ---- phase 3: inputs the JAX package hands to the host ----------------------
@@ -720,6 +880,78 @@ def main() -> int:
     print(f"edge codes over 32 bits ({deep_n} symbols, longest code {int(tl.max())} "
           f"bits): decode on the card bit-equal to the host engine's", flush=True)
     del ds, tc, tl, out, deep_bins, anchors, at_anchor, hist, slots
+    torch.cuda.empty_cache()
+
+    # LORENZO_REG inputs on the card against the host engine: a constant
+    # field, thin tail blocks, the speculation-flip field (pass count
+    # printed), the golden archives of other SZ3 builds, and the 1D default
+    # field, which the tuner sends to LORENZO_REG and which goes to the host
+    # engine without a device launch
+    lr_rng = np.random.default_rng(11)
+    f3 = lr_rng.standard_normal((13, 14, 8)).astype(np.float32)
+    thin = (np.cumsum(f3, axis=0) * 0.1 + np.cumsum(f3, axis=-1) * 0.05).astype(np.float32)
+    f24 = np.random.default_rng(11).standard_normal((24, 24, 24)).astype(np.float32)
+    flip = (np.cumsum(f24, axis=0) * 0.1 + np.cumsum(f24, axis=-1) * 0.05).astype(np.float32)
+    flip = (flip + (np.random.default_rng(11).integers(0, 3, flip.shape) - 1).astype(np.float32)
+            * 9e-4).astype(np.float32)
+    lr_edges = {"constant (13x12x7)": (np.full((13, 12, 7), 2.5, np.float32), EB),
+                "thin tail blocks (13x14x8, extents 1 and 2; ABS 1e-2)": (thin, 1e-2),
+                "speculation-flip field (24^3)": (flip, EB)}
+    for name, (data, eb_x) in lr_edges.items():
+        pass_stats = {}
+        encode = wfe.encode_blocks_wavefront
+        wfe.encode_blocks_wavefront = lambda *a: encode(*a[:6], stats=pass_stats)
+        try:
+            blob = szp.compress(data, lr_conf(eb_x), device="cuda")
+        finally:
+            wfe.encode_blocks_wavefront = encode
+        blob_native = native_compress(data, lr_conf(eb_x))
+        check(hashlib.sha256(blob).hexdigest() == hashlib.sha256(blob_native).hexdigest(),
+              f"LORENZO_REG {name}: archive sha256 differs from the host engine's")
+        check(szp.open_archive(blob)[0].cmprAlgo == szp.ALGO.LORENZO_REG,
+              f"LORENZO_REG {name}: not a LORENZO_REG archive")
+        out, _ = szp.decompress(blob, device="cuda")
+        check(out.cpu().numpy().tobytes() == native_decompress(blob_native).tobytes(),
+              f"LORENZO_REG {name}: decode not bit-equal to the host engine's")
+        print(f"edge LORENZO_REG {name}: archive sha256 == host engine, decode on the card "
+              f"bit-equal; {pass_stats['passes']} encode passes (first differences "
+              f"{pass_stats['first_differences']})", flush=True)
+    manifest = json.loads((ROOT / "tests" / "golden" / "manifest.json").read_text())
+    for case in manifest:
+        if "LORENZO_REG" not in (case["ini"] or ""):
+            continue
+        ref = (ROOT / "tests" / "golden" / f"{case['name']}.sz").read_bytes()
+        before = wf.lorenzo_sweep.launches
+        out, gconf = szp.decompress(ref, device="cuda", dtype=np.float32)
+        out = out.cpu().numpy()
+        check(wf.lorenzo_sweep.launches == before + 1, f"golden {case['name']}: no sweep")
+        check(out.tobytes() == native_decompress(ref).tobytes(),
+              f"golden {case['name']}: decode not bit-equal to the host engine's")
+        check(hashlib.sha256(out.tobytes()).hexdigest() == case["out_sha"],
+              f"golden {case['name']}: decode hash differs from the manifest's")
+        print(f"golden {case['name']} ({tuple(case['shape'])}, roster L1/L2/REG = "
+              f"{int(gconf.lorenzo)}/{int(gconf.lorenzo2)}/{int(gconf.regression)}): decoded on "
+              f"the card, bit-equal to the host engine and to the recorded hash", flush=True)
+    walk = (np.cumsum(np.cumsum(np.random.default_rng(0).standard_normal(400_000))) * 1e-3
+            ).astype(np.float32)
+    all_counters = [ed.hist_and_literals, ed.pack_bits, dec.scan_windows, dec.write_windows,
+                    wf.lorenzo_sweep]
+    for w in all_counters:
+        w.launches = 0
+    blob = szp.compress(walk, szp.Config(absErrorBound=EB), device="cuda")
+    out, wconf = szp.decompress(blob, device="cuda")
+    seen = [w.launches for w in all_counters]
+    blob_native = native_compress(walk, szp.Config(absErrorBound=EB))
+    check(blob == blob_native, "1D default field: archive differs from the host engine's")
+    check(wconf.cmprAlgo == szp.ALGO.LORENZO_REG, "1D default field: the tuner did not pick "
+                                                  "LORENZO_REG")
+    check(out.cpu().numpy().tobytes() == native_decompress(blob_native).tobytes(),
+          "1D default field: decode not bit-equal")
+    check(seen == [0] * len(all_counters), f"1D default field launched kernels {seen}")
+    print(f"edge 1D default field (400,000 f32, tuned to LORENZO_REG): the host engine's "
+          f"route, archive == host engine ({len(blob)} bytes), decode bit-equal, no kernel "
+          f"launched", flush=True)
+    del out, walk
     torch.cuda.empty_cache()
 
     stamp("phase 3 done")
@@ -903,13 +1135,143 @@ def main() -> int:
     print(f"main-path launches {launches}", flush=True)
     for k, v in launches.items():
         check(v >= 1, f"kernel {k} was not launched on the main path")
+    stamp("phase 4 done")
+
+    # ---- phase 5: the LORENZO_REG path ---------------------------------------------
+    # compress / decompress with cmprAlgo = LORENZO_REG (default roster L1 +
+    # REG, blockSize 6); launches counted over these calls alone
+    lr_counters = dict(counters, lorenzo_sweep=wf.lorenzo_sweep)
+    lr_launches = dict.fromkeys(lr_counters, 0)
+
+    def drive_lr(fn):
+        for w in lr_counters.values():
+            w.launches = 0
+        out = sync_time(fn)
+        seen = {k: w.launches for k, w in lr_counters.items()}
+        for k, v in seen.items():
+            lr_launches[k] += v
+        return out, seen
+
+    lr_encode_stages = [
+        (wfe, "fits", "fits"), (wfe, "select", "selection"),
+        (runtime, "blockwise_coef_chain_encode", "chain"),
+        (wfe, "reg_preplace_encode", "REG pre-placement"), (wfe, "sweep_encode", "sweep"),
+        (stream_order, "to_stream", "stream gather"), (ed, "hist_and_literals", "K1"),
+        (de, "_tree_and_tables", "host tree"), (ed, "pack_bits", "K2+K3"),
+        (de, "_stream_bytes", "D2H stream"), (stream_order, "literal_values", "literal gather"),
+        (runtime, "blockwise_seal_packed", "host seal")]
+    lr_decode_stages = [
+        (runtime, "blockwise_open_packed", "host zstd open"),
+        (dd, "dense_bins", "Huffman decode"), (dec, "scan_windows", "count phase"),
+        (dec, "write_windows", "write phase"),
+        (stream_order, "literal_grid", "literal placement"), (bl, "scatter_grid", "bins placement"),
+        (wf, "selection_info", "chain"), (wf, "reg_preplace_decode", "REG pre-placement"),
+        (wf, "sweep_decode", "sweep")]
+
+    def stage_line(stages, order):
+        return ", ".join(f"{name} {sum(stages[name]):.4f}"
+                         + (f" ({len(stages[name])} calls)" if len(stages[name]) > 1 else "")
+                         for _, _, name in order if name in stages)
+
+    lr_passes = {}
+    for n in SIZES:
+        data = fields[n]
+        if n in native_lr:
+            blob_native, native_enc_s = native_lr[n]
+        else:
+            blob_native, native_enc_s = sync_time(lambda: native_compress(data, lr_conf()))
+        ref_out, native_dec_s = sync_time(lambda: native_decompress(blob_native))
+        sha_native = hashlib.sha256(blob_native).hexdigest()
+        (blob_cold, enc_cold_s), _ = drive_lr(lambda: szp.compress(data, lr_conf(), device="cuda"))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (blob_warm, enc_warm_s), enc_seen = drive_lr(
+            lambda: szp.compress(data, lr_conf(), device="cuda"))
+        enc_peak = torch.cuda.max_memory_allocated() - held
+        ((out, _), dec_s), _ = drive_lr(lambda: szp.decompress(blob_native, device="cuda"))
+        del out
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ((out, _), dec_warm_s), dec_seen = drive_lr(
+            lambda: szp.decompress(blob_native, device="cuda"))
+        dec_peak = torch.cuda.max_memory_allocated() - held
+        for label, b in (("cold", blob_cold), ("warm", blob_warm)):
+            check(hashlib.sha256(b).hexdigest() == sha_native,
+                  f"LORENZO_REG {n}^3 {label} archive sha256 differs from the host engine's")
+        check(szp.open_archive(blob_native)[0].cmprAlgo == szp.ALGO.LORENZO_REG,
+              f"LORENZO_REG {n}^3: the archive is not LORENZO_REG")
+        out_np = out.cpu().numpy()
+        check(out_np.shape == ref_out.shape and np.array_equal(out_np.view(np.int32),
+                                                               ref_out.view(np.int32)),
+              f"LORENZO_REG {n}^3 decode not bit-equal to the host engine's")
+        err = float(np.abs(out_np.astype(np.float64) - data.astype(np.float64)).max())
+        check(err <= EB, f"LORENZO_REG {n}^3 max error {err} > {EB}")
+        check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] == 1
+              and enc_seen["lorenzo_sweep"] >= 1, f"LORENZO_REG {n}^3 compress launched {enc_seen}")
+        check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] == 1
+              and dec_seen["lorenzo_sweep"] == 1,
+              f"LORENZO_REG {n}^3 decompress launched {dec_seen}")
+        mb = data.nbytes / 1e6
+        print(f"LORENZO_REG {n}^3 ({mb:.0f} MB f32, ratio {data.nbytes / len(blob_cold):.2f}): "
+              f"archive sha256 == host engine {sha_native[:16]}; decode bit-equal; max err "
+              f"{err:.3e}", flush=True)
+        print(f"  encode wall: port cold {enc_cold_s:.3f} s, port warm {enc_warm_s:.3f} s "
+              f"({mb / enc_warm_s / 1e3:.3f} GB/s), host engine {native_enc_s:.3f} s", flush=True)
+        print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
+              f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; launches "
+              f"per compress {enc_seen}, per decompress {dec_seen}", flush=True)
+        print(f"  peak device memory above what was held before the call: warm compress "
+              f"{enc_peak / 2**30:.3f} GiB, warm decompress {dec_peak / 2**30:.3f} GiB", flush=True)
+        del out, out_np
+
+        # where the time goes: each stage timed between synchronisations
+        c, cap = archive_conf(data, lr_conf())
+        x, up_s = sync_time(lambda: torch.from_numpy(data).to(dev))
+        pstats = {}
+        with timed(lr_encode_stages) as st:
+            payload, staged_s = sync_time(
+                lambda: de.encode_payload_device_blockwise(c, x, cap, pstats))
+        check(payload == szp.open_archive(blob_native)[1], f"LORENZO_REG {n}^3 staged payload "
+                                                           f"differs")
+        lr_passes[n] = pstats["passes"]
+        print(f"  encode stages (s): upload {up_s:.4f}, {stage_line(st, lr_encode_stages)}; "
+              f"sweep per pass {[round(v, 4) for v in st['sweep']]}; {pstats['passes']} passes "
+              f"(first differences {pstats['first_differences']}); all {staged_s:.4f}",
+              flush=True)
+        del x
+        dc, dpayload = szp.open_archive(blob_native)
+        with timed(lr_decode_stages) as st:
+            staged, staged_s = sync_time(
+                lambda: dd.decode_payload_device_blockwise(dc, dpayload, dev))
+        check(np.array_equal(staged.cpu().numpy().view(np.int32), ref_out.view(np.int32)),
+              f"LORENZO_REG {n}^3 staged decode not bit-equal")
+        print(f"  decode stages (s): {stage_line(st, lr_decode_stages)}; all {staged_s:.4f} "
+              f"(the Huffman decode holds the count and write phases)", flush=True)
+        del staged
+        for label, fn in (("encode", lambda: szp.compress(data, lr_conf(), device="cuda")),
+                          ("decode", lambda: szp.decompress(blob_native, device="cuda"))):
+            busy_ms, wall_ms, events, kinds = busy(fn)
+            share = f"{100 * busy_ms / wall_ms:.2f} %" if events else "not measured"
+            split = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(kinds.items()))
+            print(f"  device busy, warm LORENZO_REG {label} under torch.profiler: {busy_ms:.2f} ms "
+                  f"of {wall_ms:.2f} ms wall ({share}; {events} device events; {split})",
+                  flush=True)
+        stamp(f"LORENZO_REG {n}^3 done")
+        torch.cuda.empty_cache()
+
+    print(f"LORENZO_REG path launches {lr_launches}; encode passes {lr_passes}", flush=True)
+    for k, v in lr_launches.items():
+        check(v >= 1, f"kernel {k} was not launched on the LORENZO_REG path")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"sz3_tpu_torch/csrc/{source}",
-                "replaces": replaces, **extra, "launches": launches[name], "max_abs_err": err,
+                "replaces": replaces, **extra, "launches": launches.get(name, lr_launches[name]),
+                "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
@@ -923,7 +1285,14 @@ def main() -> int:
             k4_plain_ms, k4_bound, None),
         row("huff_write", "huff_write.cu", "sz3_tpu/ops/entropy_decode.py:470", kw_err,
             kw_ms, kw_plain_ms, kw_bound, None),
+        row("lorenzo_sweep", "lorenzo_sweep.cu", "sz3_tpu/ops/blockwise_wavefront.py:178",
+            sweep_err, swd_ms, swd_plain_ms, swd_bound, None,
+            also_replaces="sz3_tpu/ops/blockwise_wavefront_encode.py:284",
+            encode_ms=swe_ms, encode_plain_ms=swe_plain_ms, encode_bound_ms=swe_bound[0],
+            dependency_bound_ms=sw_dep_ms),
     ]
+    for r in kernels:
+        r["lorenzo_reg_launches"] = lr_launches[r["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

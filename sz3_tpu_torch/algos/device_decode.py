@@ -70,3 +70,49 @@ def decode_payload_device(conf: Config, payload: bytes, dtype, device: torch.dev
     return decode_grid_fast(grid_to_pass_slices(bins, plan), grid_to_pass_slices(literal, plan),
                             plan, initial_literal(literal, plan), bins[(0,) * bins.dim()],
                             literal.dtype)
+
+
+def decode_payload_device_blockwise(conf: Config, payload: bytes,
+                                    device: torch.device) -> torch.Tensor:
+    """LORENZO_REG payload of a 3D float32 field -> the field on `device`,
+    shaped conf.dims (counterpart of ``decode_payload_device_blockwise`` in
+    sz3_tpu/algos/device_decode.py).
+
+      host:   zstd + framing, the bins' Huffman stream opened without its
+              bit-walk, and the side streams (runtime.blockwise_open_packed)
+      device: the Huffman decode (K4 + the write phase) to the block-major
+              stream, the literals to the zero bins in stream order, both to
+              the rounded grid through the block permutation
+              (ops/blockwise_layout)
+      host:   per-block predictors and the coefficient chain replay
+              (ops/blockwise_wavefront.selection_info)
+      device: regression cells placed, then the element sweep (lorenzo_sweep)
+
+    Raises ValueError on a payload whose counts disagree."""
+    from ..ops import blockwise_layout as bl
+    from ..ops import blockwise_wavefront as wf
+
+    roster = wf.roster_of(conf.lorenzo, conf.lorenzo2, conf.regression)
+    (bits, count, offset, codes, lens, const_sym, sel, regb, qlu, qiu,
+     unpred) = runtime.blockwise_open_packed(conf, payload)
+    geo = bl.geometry(conf.dims)
+    num = int(np.prod(geo.dims))
+    if count != num:
+        raise ValueError(f"archived symbol count {count} != {num} grid points")
+    eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
+    dense = dense_bins(bits, count, offset, codes, lens, const_sym, device)
+    slots = torch.nonzero(dense == 0).reshape(-1)
+    if slots.numel() != unpred.size:
+        raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
+    values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(torch.float32)
+    perm = bl.perm_for(geo.dims, device)
+    lits = stream_order.literal_grid(values, perm, slots, geo.ncells).reshape(geo.grid)
+    bins = bl.scatter_grid(dense, perm, geo)
+    block_types, coefs = wf.selection_info(geo, roster, sel, regb, qlu, qiu, eb)
+    types = wf.cell_types(geo, torch.from_numpy(block_types).to(device))
+    rec = wf.padded_grid(geo, wf.reg_preplace_decode(
+        geo, types, bins, lits, torch.from_numpy(coefs).to(device).reshape(*geo.nb, 4), eb,
+        radius))
+    wf.sweep_decode(rec, types, bins, lits, eb, radius)
+    d0, d1, d2 = geo.dims
+    return rec[bl.PAD:bl.PAD + d0, bl.PAD:bl.PAD + d1, bl.PAD:bl.PAD + d2].contiguous()

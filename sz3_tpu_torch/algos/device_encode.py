@@ -22,6 +22,8 @@ first point's bin goes into the bins grid when there are no anchors.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -111,3 +113,35 @@ def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
     bits_bytes = _stream_bytes(words, total_bits)
     unpred = stream_order.literal_values(x, perm, slots).cpu().numpy()
     return runtime.interp_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)
+
+
+def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
+                                    stats: Optional[dict] = None) -> bytes:
+    """LORENZO_REG payload of the 3D float32 field `x` (on the device that
+    runs the encode, shaped conf.dims), with the sweep and the entropy stage
+    on that device (counterpart of ``encode_payload_device_blockwise`` in
+    sz3_tpu/algos/device_encode.py). Rosters: {L1}, {REG}, {L1, REG}.
+
+      device: fits, selection, sweep and certification
+              (ops/blockwise_wavefront_encode), the host engine replaying the
+              coefficient chain once a pass
+      device: the bins grid to the block-major stream through the cached
+              permutation (ops/blockwise_layout), K1, then K2+K3 after the
+              host's tree, as in encode_payload_device
+      host:   payload framing + zstd (runtime.blockwise_seal_packed)"""
+    from ..ops import blockwise_layout as bl
+    from ..ops.blockwise_wavefront_encode import encode_blocks_wavefront
+
+    radius = conf.quantbinCnt // 2
+    bins_grid, g, sel, regb, qlu, qiu = encode_blocks_wavefront(
+        x, conf.absErrorBound, radius, conf.lorenzo, conf.lorenzo2, conf.regression, stats)
+    num = x.numel()
+    perm = bl.perm_for(conf.dims, x.device)
+    bins_stream = stream_order.to_stream(bins_grid, perm)
+    hist, slots = ed.hist_and_literals(bins_stream, radius)
+    tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, x.device)
+    words = ed.pack_bits(bins_stream, tc, tl, radius, total_bits)
+    bits_bytes = _stream_bytes(words, total_bits)
+    unpred = stream_order.literal_values(g, perm, slots).cpu().numpy()
+    return runtime.blockwise_seal_packed(conf, tree, bits_bytes, total_bits, num, sel, regb,
+                                         qlu, qiu, unpred, cap)

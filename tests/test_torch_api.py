@@ -253,7 +253,7 @@ def test_nonfinite_and_subnormal_values():
     _same_decode(blob)
 
 
-@pytest.mark.parametrize("algo", [ALGO.NOPRED, ALGO.LORENZO_REG, ALGO.BIOMD])
+@pytest.mark.parametrize("algo", [ALGO.NOPRED, ALGO.BIOMDXTC, ALGO.BIOMD])
 def test_other_algorithms_raise(algo):
     x = _field((24, 24, 3), seed=12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -279,17 +279,18 @@ _GOLDEN = [c for c in _MANIFEST if c["dtype"] in ("float32", "float64") and not 
 
 @pytest.mark.parametrize("case", _GOLDEN, ids=[c["name"] for c in _GOLDEN])
 def test_golden_corpus(case):
-    """Golden reference archives of the slice's algorithms (INTERP, LOSSLESS)
-    decode to their recorded hash; the others raise NotImplementedError."""
+    """Golden reference archives of the port's algorithms (INTERP, LOSSLESS,
+    LORENZO_REG) decode to their recorded hash; the others (NOPRED, BIOMD,
+    BIOMDXTC) raise NotImplementedError."""
     ref = (GOLDEN / f"{case['name']}.sz").read_bytes()
     try:
         out, conf = szp.decompress(ref, device="cpu", dtype=np.dtype(case["dtype"]))
     except NotImplementedError as e:
         assert "ROADMAP" in str(e)
         _, conf = szt.decompress(ref, dtype=np.dtype(case["dtype"]))
-        assert int(conf.cmprAlgo) not in (ALGO.INTERP, ALGO.LOSSLESS)
+        assert int(conf.cmprAlgo) in (ALGO.NOPRED, ALGO.BIOMD, ALGO.BIOMDXTC)
         return
-    assert conf.cmprAlgo in (ALGO.INTERP, ALGO.LOSSLESS)
+    assert conf.cmprAlgo in (ALGO.INTERP, ALGO.LOSSLESS, ALGO.LORENZO_REG)
     assert hashlib.sha256(out.numpy().tobytes()).hexdigest() == case["out_sha"]
 
 

@@ -186,3 +186,23 @@ def test_stats_copy():
         jstats.cal_abs_error_bound(cj, x)
         pstats.cal_abs_error_bound(cp, x)
         assert cp.absErrorBound == cj.absErrorBound and int(cp.errorBoundMode) == 0
+
+
+def test_blockwise_constants_equal():
+    """The port's copies of the block size and the Lorenzo noise tables
+    (ops/blockwise_layout.py) equal sz3_tpu/ops/blockwise_device.py's."""
+    from sz3_tpu.ops import blockwise_device as jbd
+    from sz3_tpu_torch.ops import blockwise_layout as pbl
+
+    assert pbl.BS == jbd.BS and pbl.PAD == jbd.PAD
+    for order in (1, 2):
+        for n_dims in (1, 2, 3, 4):
+            for eb in (1e-1, 1e-3, 3.7e-6):
+                assert pbl._noise(order, n_dims, eb) == jbd._noise(order, n_dims, eb)
+
+
+def test_blockwise_sweep_types_equal():
+    from sz3_tpu.ops import blockwise_wavefront as jwf
+    from sz3_tpu_torch.ops import blockwise_layout as pbl
+
+    assert (pbl.T_L1, pbl.T_L2, pbl.T_KEEP) == (jwf.T_L1, jwf.T_L2, jwf.T_KEEP)

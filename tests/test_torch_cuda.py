@@ -357,3 +357,76 @@ def test_f64_and_edge_archives_decode_on_the_card(dev):
         ref = runtime.decompress_payload(conf, payload)
         out, _ = szp.decompress(blob, device=dev)
         assert out.cpu().numpy().tobytes() == ref.tobytes()
+
+
+# ---- LORENZO_REG: the element sweep -------------------------------------------------
+
+def _sweep_case(shape, seed):
+    """Random L1/L2/KEEP types, bins across the quantizer's whole range,
+    values with NaN, Inf and subnormals, a reconstruction with kept cells."""
+    from sz3_tpu_torch.ops import blockwise_wavefront as twf
+    from sz3_tpu_torch.ops.blockwise_layout import Geometry
+
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, 3, shape).astype(np.uint8)
+    bins = rng.integers(1, 2 * RADIUS, shape).astype(np.int32)
+    bins[rng.random(shape) < 0.05] = 0
+    vals = (np.cumsum(rng.standard_normal(shape), axis=2) * 0.01).astype(np.float32)
+    flat = vals.reshape(-1)
+    flat[::97] = np.nan
+    flat[5::131] = np.inf
+    flat[7::137] = -np.inf
+    flat[11::139] = np.float32(3e-39)
+    init = np.where(types == 2, vals + 0.5, 0).astype(np.float32)
+    rec = twf.padded_grid(Geometry(shape, shape, shape), torch.from_numpy(init))
+    return rec, *(torch.from_numpy(a) for a in (types, bins, vals))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (6, 6, 6), (12, 18, 6), (2, 40, 3), (37, 29, 45)])
+@pytest.mark.parametrize("eb", [1e-3, 1e-1])
+def test_lorenzo_sweep_matches_plain(dev, shape, eb):
+    """Both forms of the kernel equal their plain versions bit for bit, on
+    grid edges and random types; one launch counted per sweep."""
+    from sz3_tpu_torch.ops import blockwise_wavefront as twf
+    from sz3_tpu_torch.ops import blockwise_wavefront_encode as twfe
+
+    rec, types, bins, vals = (t.to(dev) for t in _sweep_case(shape, sum(shape)))
+    rk, rp = rec.clone(), rec.clone()
+    before = twf.lorenzo_sweep.launches
+    twf.sweep_decode(rk, types, bins, vals, eb, RADIUS)
+    assert twf.lorenzo_sweep.launches == before + 1
+    twf.sweep_decode_plain(rp, types, bins, vals, eb, RADIUS)
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    rk, rp = rec.clone(), rec.clone()
+    bk = twfe.sweep_encode(rk, types, vals, eb, RADIUS)
+    bp = twfe.sweep_encode_plain(rp, types, vals, eb, RADIUS)
+    assert torch.equal(bk, bp) and torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert twf.lorenzo_sweep.launches == before + 2
+
+
+@pytest.mark.parametrize("roster", [(True, False, True), (True, False, False),
+                                    (False, False, True)])
+@pytest.mark.parametrize("shape", [(18, 18, 18), (33, 6, 47), (64, 50, 37)])
+def test_lorenzo_reg_archives_on_the_card(dev, roster, shape):
+    """LORENZO_REG archives written on the card equal the host engine's, and
+    decode on the card bit-equal to its decode, one sweep per pass."""
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import blockwise_wavefront as twf
+
+    rng = np.random.default_rng(sum(shape))
+    f = rng.standard_normal(shape).astype(np.float32)
+    x = (np.cumsum(f, axis=0) * 0.1 + np.cumsum(f, axis=-1) * 0.05).astype(np.float32)
+    conf = Config(cmprAlgo=ALGO.LORENZO_REG, absErrorBound=1e-2)
+    conf.lorenzo, conf.lorenzo2, conf.regression = roster
+    c, cap = archive_conf(x, conf)
+    want = szp.pack_archive(c, runtime.compress_payload(c, x, cap))
+    before = twf.lorenzo_sweep.launches
+    blob = szp.compress(x, conf, device=dev)
+    assert blob == want and twf.lorenzo_sweep.launches > before
+    before = twf.lorenzo_sweep.launches
+    out, dconf = szp.decompress(blob, device=dev)
+    assert dconf.cmprAlgo == ALGO.LORENZO_REG and twf.lorenzo_sweep.launches == before + 1
+    assert out.device.type == "cuda"
+    ref = runtime.decompress_payload(*szp.open_archive(blob))
+    assert out.cpu().numpy().tobytes() == ref.tobytes()

@@ -31,6 +31,11 @@ x64 = x.astype(np.float64)
 blob64 = szp.compress(x64, szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-3), device="cpu")
 out64, _ = szp.decompress(blob64, device="cpu")
 assert out64.numpy().dtype == np.float64 and float(np.abs(out64.numpy() - x64).max()) <= 1e-3
+blob_lr = szp.compress(x, szp.Config(cmprAlgo=szp.ALGO.LORENZO_REG, absErrorBound=1e-3),
+                       device="cpu")
+out_lr, conf_lr = szp.decompress(blob_lr, device="cpu")
+assert conf_lr.cmprAlgo == szp.ALGO.LORENZO_REG
+assert float(np.abs(out_lr.numpy() - x).max()) <= 1e-3
 assert sys.modules["jax"] is None and sys.modules["sz3_tpu"] is None
 assert not [m for m in sys.modules if m.startswith("sz3_tpu.")]
 print("ok", len(blob))
