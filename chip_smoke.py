@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
@@ -281,18 +282,34 @@ def main() -> int:
         return szp.Config(cmprAlgo=szp.ALGO.LORENZO_REG, absErrorBound=eb)
 
     @contextlib.contextmanager
-    def timed(spec):
+    def timed(spec, memory=None):
         """Every call of each (module, attribute, stage) in `spec` timed
-        between two synchronisations; yields {stage: [seconds per call]}. A
+        between two synchronisations; yields {stage: [seconds per call]}.
+        With a dict `memory`, it receives each stage's peak device memory
+        above what was allocated when the stage began, in bytes (the largest
+        over its calls; a stage that holds others counts their peaks too). A
         wrapper stands in for the function while the block runs, so a
         kernel's own launch count is not kept then."""
         stages = {}
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in spec]
+        frames = []     # per open stage: [allocated at its start, peak seen so far]
 
         def wrap(fn, stage):
             def inner(*a, **k):
+                if memory is not None:
+                    torch.cuda.synchronize()
+                    if frames:      # the peak so far of the stage that holds this one
+                        frames[-1][1] = max(frames[-1][1], torch.cuda.max_memory_allocated())
+                    frames.append([torch.cuda.memory_allocated(), 0])
+                    torch.cuda.reset_peak_memory_stats()
                 out, sec = sync_time(lambda: fn(*a, **k))
                 stages.setdefault(stage, []).append(sec)
+                if memory is not None:
+                    held, seen = frames.pop()
+                    peak = max(seen, torch.cuda.max_memory_allocated())
+                    memory[stage] = max(memory.get(stage, 0), peak - held)
+                    if frames:
+                        frames[-1][1] = max(frames[-1][1], peak)
                 return out
             inner.launches = 0
             return inner
@@ -773,24 +790,46 @@ def main() -> int:
     empty_ms = event_ms(lambda: torch.cuda._sleep(0), reps=1000)
     gx, gy, gz = types_d.shape
     planes = gx + gy + gz - 2
-    ncell = types_d.numel()
-    npad = rec_d.numel()
     n1 = [int((t == bl.T_L1).sum()) for t in (types_d, types_e)]
     n2 = [int((t == bl.T_L2).sum()) for t in (types_d, types_e)]
-    # bytes: the padded reconstruction read and written once, the types (1
-    # byte), the bins and the literals or originals (4 bytes each) once.
-    # Operations: a first-order cell 7 stencil adds, a second-order one 51
+
+    def sweep_bytes(types_t, bins_t=None):
+        """The bytes the sweep must move on these inputs (bins_t given: the
+        decode). Every cell's type (1 byte); the reconstruction read where a
+        Lorenzo cell's stencil reaches a cell the sweep does not write (the
+        pad, KEEP cells) and written at the Lorenzo cells; the decode reads
+        the Lorenzo cells' bins and the literals of those whose bin is 0, the
+        encode reads the Lorenzo cells' originals and writes every cell's
+        bin (4 bytes each)."""
+        sx, sy, sz = types_t.shape
+        pd = bl.PAD
+        l2 = types_t == bl.T_L2
+        lor = l2 | (types_t == bl.T_L1)
+        reach = torch.zeros((sx + pd, sy + pd, sz + pd), dtype=torch.bool, device=dev)
+        for a, b, c in itertools.product(range(3), repeat=3):
+            if a + b + c:
+                reach[pd - a:pd - a + sx, pd - b:pd - b + sy, pd - c:pd - c + sz] |= (
+                    lor if max(a, b, c) == 1 else l2)
+        reach[pd:, pd:, pd:] &= ~lor
+        nlor = int(lor.sum())
+        fixed = types_t.numel() + 4 * int(reach.sum()) + 8 * nlor
+        if bins_t is None:
+            return fixed + 4 * types_t.numel()
+        return fixed + 4 * int((lor & (bins_t == 0)).sum())
+
+    # operations: a first-order cell 7 stencil adds, a second-order one 51
     # (26 terms, 25 of them scaled); recover 5 more, quantize 16 more
-    swd_bound = bound(8 * npad + 9 * ncell, 12 * n1[0] + 56 * n2[0])
-    swe_bound = bound(8 * npad + 9 * ncell, 23 * n1[1] + 67 * n2[1])
+    swd_bytes, swe_bytes = sweep_bytes(types_d, bins_d), sweep_bytes(types_e)
+    swd_bound = bound(swd_bytes, 12 * n1[0] + 56 * n2[0])
+    swe_bound = bound(swe_bytes, 23 * n1[1] + 67 * n2[1])
     sw_dep_ms = planes * empty_ms
     print(f"lorenzo_sweep at 256^3 (grid {gx}x{gy}x{gz}, {planes} planes, one launch each; "
           f"L1 cells decode/encode {n1}, L2 {n2}): decode kernel {swd_ms:.4f} ms, plain "
           f"{swd_plain_ms:.2f} ms (plain,kernel,kernel,plain = {[round(v, 4) for v in swd_runs]}); "
           f"encode kernel {swe_ms:.4f} ms, plain {swe_plain_ms:.2f} ms ("
           f"{[round(v, 4) for v in swe_runs]}); bound by bytes or operations: decode "
-          f"{swd_bound[0]:.4f} ms by {swd_bound[1]}, encode {swe_bound[0]:.4f} ms by "
-          f"{swe_bound[1]}; dependency bound {planes} x {empty_ms * 1e3:.3f} us (one empty "
+          f"{swd_bound[0]:.5f} ms by {swd_bound[1]} ({swd_bytes} bytes), encode "
+          f"{swe_bound[0]:.5f} ms by {swe_bound[1]} ({swe_bytes} bytes); dependency bound {planes} x {empty_ms * 1e3:.3f} us (one empty "
           f"dependent launch, this card) = {sw_dep_ms:.4f} ms; no PyTorch call computes it",
           flush=True)
     del enc_in, dec_in, rec_e, types_e, orig_e, rec_d, types_d, bins_d, lits_d, sweep_cases
@@ -1164,9 +1203,12 @@ def main() -> int:
         (runtime, "blockwise_open_packed", "host zstd open"),
         (dd, "dense_bins", "Huffman decode"), (dec, "scan_windows", "count phase"),
         (dec, "write_windows", "write phase"),
-        (stream_order, "literal_grid", "literal placement"), (bl, "scatter_grid", "bins placement"),
+        (stream_order, "literal_grid", "literal placement"), (stream_order, "from_stream", "bins placement"),
         (wf, "selection_info", "chain"), (wf, "reg_preplace_decode", "REG pre-placement"),
         (wf, "sweep_decode", "sweep")]
+
+    def mem_line(mem):
+        return ", ".join(f"{k} {v / 2**20:.1f}" for k, v in mem.items())
 
     def stage_line(stages, order):
         return ", ".join(f"{name} {sum(stages[name]):.4f}"
@@ -1222,15 +1264,23 @@ def main() -> int:
         print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
               f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; launches "
               f"per compress {enc_seen}, per decompress {dec_seen}", flush=True)
+        total = torch.cuda.get_device_properties(0).total_memory
         print(f"  peak device memory above what was held before the call: warm compress "
-              f"{enc_peak / 2**30:.3f} GiB, warm decompress {dec_peak / 2**30:.3f} GiB", flush=True)
+              f"{enc_peak / 2**30:.3f} GiB ({enc_peak / data.nbytes:.2f} bytes a field byte), "
+              f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f}); at "
+              f"that ratio the card's {total / 2**30:.1f} GiB, less the {held / 2**30:.3f} GiB "
+              f"held, fits a field of {(total - held) / (enc_peak / data.nbytes) / 1e9:.1f} GB "
+              f"to compress and {(total - held) / (dec_peak / data.nbytes) / 1e9:.1f} GB to "
+              f"decompress", flush=True)
         del out, out_np
 
         # where the time goes: each stage timed between synchronisations
         c, cap = archive_conf(data, lr_conf())
         x, up_s = sync_time(lambda: torch.from_numpy(data).to(dev))
-        pstats = {}
-        with timed(lr_encode_stages) as st:
+        pstats, enc_mem = {}, {}
+        with timed(lr_encode_stages + [(wfe, "encode_blocks_wavefront", "wavefront"),
+                                       (de, "encode_payload_device_blockwise", "all")],
+                   enc_mem) as st:
             payload, staged_s = sync_time(
                 lambda: de.encode_payload_device_blockwise(c, x, cap, pstats))
         check(payload == szp.open_archive(blob_native)[1], f"LORENZO_REG {n}^3 staged payload "
@@ -1240,15 +1290,21 @@ def main() -> int:
               f"sweep per pass {[round(v, 4) for v in st['sweep']]}; {pstats['passes']} passes "
               f"(first differences {pstats['first_differences']}); all {staged_s:.4f}",
               flush=True)
+        print(f"  encode stages, peak device memory above what each began with (MiB): "
+              f"{mem_line(enc_mem)}", flush=True)
         del x
         dc, dpayload = szp.open_archive(blob_native)
-        with timed(lr_decode_stages) as st:
+        dec_mem = {}
+        with timed(lr_decode_stages + [(dd, "decode_payload_device_blockwise", "all")],
+                   dec_mem) as st:
             staged, staged_s = sync_time(
                 lambda: dd.decode_payload_device_blockwise(dc, dpayload, dev))
         check(np.array_equal(staged.cpu().numpy().view(np.int32), ref_out.view(np.int32)),
               f"LORENZO_REG {n}^3 staged decode not bit-equal")
         print(f"  decode stages (s): {stage_line(st, lr_decode_stages)}; all {staged_s:.4f} "
               f"(the Huffman decode holds the count and write phases)", flush=True)
+        print(f"  decode stages, peak device memory above what each began with (MiB): "
+              f"{mem_line(dec_mem)}", flush=True)
         del staged
         for label, fn in (("encode", lambda: szp.compress(data, lr_conf(), device="cuda")),
                           ("decode", lambda: szp.decompress(blob_native, device="cuda"))):
@@ -1289,7 +1345,7 @@ def main() -> int:
             sweep_err, swd_ms, swd_plain_ms, swd_bound, None,
             also_replaces="sz3_tpu/ops/blockwise_wavefront_encode.py:284",
             encode_ms=swe_ms, encode_plain_ms=swe_plain_ms, encode_bound_ms=swe_bound[0],
-            dependency_bound_ms=sw_dep_ms),
+            encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms),
     ]
     for r in kernels:
         r["lorenzo_reg_launches"] = lr_launches[r["name"]]

@@ -107,12 +107,14 @@ def decode_payload_device_blockwise(conf: Config, payload: bytes,
     values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(torch.float32)
     perm = bl.perm_for(geo.dims, device)
     lits = stream_order.literal_grid(values, perm, slots, geo.ncells).reshape(geo.grid)
-    bins = bl.scatter_grid(dense, perm, geo)
+    bins = stream_order.from_stream(dense, perm, geo.ncells).reshape(geo.grid)
+    del dense, slots, values
     block_types, coefs = wf.selection_info(geo, roster, sel, regb, qlu, qiu, eb)
-    types = wf.cell_types(geo, torch.from_numpy(block_types).to(device))
-    rec = wf.padded_grid(geo, wf.reg_preplace_decode(
-        geo, types, bins, lits, torch.from_numpy(coefs).to(device).reshape(*geo.nb, 4), eb,
-        radius))
+    block_types = torch.from_numpy(block_types).to(device)
+    types = wf.cell_types(geo, block_types)
+    rec = torch.zeros(geo.padded, dtype=torch.float32, device=device)
+    wf.reg_preplace_decode(geo, rec, (block_types == bl.T_KEEP).reshape(geo.nb), bins, lits,
+                           torch.from_numpy(coefs).to(device).reshape(*geo.nb, 4), eb, radius)
     wf.sweep_decode(rec, types, bins, lits, eb, radius)
     d0, d1, d2 = geo.dims
     return rec[bl.PAD:bl.PAD + d0, bl.PAD:bl.PAD + d1, bl.PAD:bl.PAD + d2].contiguous()

@@ -44,11 +44,9 @@ def plan_for(conf: Config):
 
 
 def perm_for(conf: Config, device) -> torch.Tensor:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())  # one cache entry per card
     return stream_order.device_perm(tuple(conf.dims), int(conf.interpAlgo),
-                                    conf.interpDirection, conf.interpAnchorStride, device)
+                                    conf.interpDirection, conf.interpAnchorStride,
+                                    stream_order.cache_device(device))
 
 
 def _huffman_table(offset: int, freq: np.ndarray):

@@ -3,9 +3,8 @@ host engine. Nothing is built when a module is imported.
 
 Kernels: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc -c`` per source, all started together) and linked into one shared
-library with a plain C interface, loaded with ctypes. A source with float
-arithmetic that must match the host engine bit for bit is compiled with
-``-fmad=false`` as well (``NVCC_SOURCE_FLAGS``).
+library with a plain C interface, loaded with ctypes. ``-fmad=false`` keeps
+float arithmetic rounding once per operation, as the host engine's build does.
 
 Host engine: ``csrc/engine/`` (the port's copy of the sources under
 ``sz3_tpu/native/``) is compiled by ``g++`` into one shared library that
@@ -44,11 +43,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 ENGINE_SRC = CSRC / "engine"
 BUILD_DIR = _PKG / "_build"
+# -fmad=false: no multiply-add contraction, so float kernels round once per
+# operation as the host engine's -ffp-contract=off build does (archive parity).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
-# Sources with float arithmetic that must round once per operation, as the
-# host engine's -ffp-contract=off build does: no multiply-add contraction.
-NVCC_SOURCE_FLAGS = {"lorenzo_sweep.cu": ["-fmad=false"]}
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-march=native",
             "-funroll-loops", "-ffp-contract=off", "-Wall"]
 
@@ -89,8 +87,7 @@ def _sources():
 
 def kernel_lib_path() -> Path:
     cu, cuh = _sources()
-    flags = NVCC_FLAGS + [f"{k}:{' '.join(v)}" for k, v in sorted(NVCC_SOURCE_FLAGS.items())]
-    return BUILD_DIR / f"libszt_cuda-{_hash(cu + cuh, flags)}.so"
+    return BUILD_DIR / f"libszt_cuda-{_hash(cu + cuh, NVCC_FLAGS)}.so"
 
 
 def _nvcc() -> str:
@@ -118,8 +115,8 @@ def build_kernels(verbose: bool = False) -> Path:
         cu, _ = _sources()
         tag = f"{out.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cu]
-        cmds = [[nvcc, *NVCC_FLAGS, *NVCC_SOURCE_FLAGS.get(s.name, []),
-                 *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(o), str(s)]
+        cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o",
+                 str(o), str(s)]
                 for s, o in zip(cu, objs)]
         try:
             procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,

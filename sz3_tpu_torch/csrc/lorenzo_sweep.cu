@@ -23,12 +23,13 @@
 // is one launch of a few hundred blocks, and its cells read 7 (L1) or 26
 // (L2) neighbours scattered over as many rows as the warp's lanes span
 // (x falls by one from lane to lane). The 256^3 field is 772 launches of
-// 66,564 threads; the bytes (each cell's inputs and outputs once, some 13
-// bytes a cell) would take 0.07 ms at 3.35 TB/s, the launches alone more.
+// 66,564 threads; the bytes it must move (some 9 bytes a cell decoding, 13
+// encoding) would take 0.05 and 0.07 ms at 3.35 TB/s, the launches alone
+// more.
 // A persistent kernel or a CUDA graph is the next step if the sweep sets
 // the pace of a call.
 //
-// Bit-exactness. This source is built with -fmad=false (build.py): the
+// Bit-exactness. The kernels are built with -fmad=false (build.py): the
 // stencil sums, the recover pred + q*eb and the quantizer's pred + q*eb
 // each round once per operation, as the host engine's -ffp-contract=off
 // build and the plain versions do; a contracted multiply-add would move

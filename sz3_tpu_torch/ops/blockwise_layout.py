@@ -12,7 +12,7 @@ On the card a gather is cheap, so the stream order is one cached
 permutation from stream slot to flat index of the rounded grid, built on the
 device from ``arange`` arithmetic: stream bins are ``grid.flatten()[perm]``,
 literals ``x.flatten()[perm[slots]]``, and the decode scatters through the
-same permutation. It replaces the TPU's gather-free pieces
+same permutation (``ops/stream_order``). It replaces the TPU's gather-free pieces
 (``stream_to_blocked``, ``valid_mask`` / ``slot_to_grid`` / ``to_stream``,
 ``_grid_to_blocks`` / ``_blocks_to_grid``); there are no SENTINEL pads.
 """
@@ -23,6 +23,8 @@ from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import torch
+
+from . import stream_order
 
 BS = 6          # the reference's block size for 3D (Config.hpp:175)
 PAD = 2         # front pad of the sweep's grid: the second-order stencil's reach
@@ -100,14 +102,6 @@ def per_block(v: torch.Tensor, geo: Geometry) -> torch.Tensor:
     return v.reshape(geo.nb[0], 1, geo.nb[1], 1, geo.nb[2], 1, *v.shape[3:])
 
 
-def local_coords(device):
-    """The in-block coordinates (x, y, z) as float32 views that broadcast
-    against ``blocked``."""
-    c = torch.arange(BS, dtype=torch.float32, device=device)
-    return (c.reshape(1, BS, 1, 1, 1, 1), c.reshape(1, 1, 1, BS, 1, 1),
-            c.reshape(1, 1, 1, 1, 1, BS))
-
-
 def valid_cells(geo: Geometry, device) -> torch.Tensor:
     """(NX, NY, NZ) bool: the rounded grid's cells inside the field."""
     ax = [torch.arange(g, device=device) < d for g, d in zip(geo.grid, geo.dims)]
@@ -135,17 +129,4 @@ def device_perm(dims, device: torch.device) -> torch.Tensor:
 
 
 def perm_for(dims, device) -> torch.Tensor:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())  # one cache entry per card
-    return device_perm(tuple(int(d) for d in dims), device)
-
-
-def scatter_grid(dense: torch.Tensor, perm: torch.Tensor, geo: Geometry) -> torch.Tensor:
-    """Stream-order values -> the rounded grid (zeros outside the field)."""
-    if dense.shape != perm.shape:
-        raise ValueError(f"stream of {tuple(dense.shape)} for a permutation of "
-                         f"{tuple(perm.shape)}")
-    grid = torch.zeros(geo.ncells, dtype=dense.dtype, device=dense.device)
-    grid[perm] = dense
-    return grid.reshape(geo.grid)
+    return device_perm(tuple(int(d) for d in dims), stream_order.cache_device(device))

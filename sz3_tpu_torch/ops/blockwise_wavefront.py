@@ -35,8 +35,8 @@ import torch
 
 from .. import runtime
 from ..build import kernels
-from .blockwise_layout import (BS, PAD, T_KEEP, T_L1, T_L2, Geometry, local_coords,
-                               per_block, reg_valid, valid_cells)
+from .blockwise_layout import (BS, PAD, T_KEEP, T_L1, T_L2, Geometry, extents, per_block,
+                               reg_valid, valid_cells)
 from .quantize import recover
 
 
@@ -79,13 +79,39 @@ def selection_info(geo: Geometry, roster, selection, reg_bins, ql_unpred, qi_unp
     return types, coefs
 
 
-def plane_prediction(geo: Geometry, coefs: torch.Tensor) -> torch.Tensor:
-    """Each cell's regression prediction c0*x + c1*y + c2*z + c3 from its
-    block's coefficients (nb0, nb1, nb2, 4) float32, in float32 and in that
-    order, as the (nb0, 6, nb1, 6, nb2, 6) view of the rounded grid."""
-    lx, ly, lz = local_coords(coefs.device)
-    c = per_block(coefs, geo)
-    return c[..., 0] * lx + c[..., 1] * ly + c[..., 2] * lz + c[..., 3]
+# the regression cells are placed this many blocks at a time, so that the
+# placement's temporaries stay small whatever share of the blocks regress
+REG_CHUNK = 1 << 14
+
+
+def reg_cells(geo: Geometry, is_reg: torch.Tensor, coefs: torch.Tensor):
+    """The cells inside the field of the regression blocks (is_reg (nb0,
+    nb1, nb2) bool), REG_CHUNK blocks at a time: yields ((x, y, z) rounded-
+    grid coordinates, (n,) int64 each; each cell's plane prediction
+    c0*x + c1*y + c2*z + c3 from its block's coefficients (coefs (nb0, nb1,
+    nb2, 4) float32) with in-block x, y, z, in float32 and in that order)."""
+    dev = is_reg.device
+    blks = torch.nonzero(is_reg.reshape(-1)).reshape(-1)
+    ex = extents(geo, dev).reshape(3, -1)
+    cs = coefs.reshape(-1, 4)
+    t = torch.arange(BS ** 3, device=dev)
+    loc = (t // (BS * BS), (t // BS) % BS, t % BS)
+    locf = [c.to(torch.float32) for c in loc]
+    for lo in range(0, blks.numel(), REG_CHUNK):
+        blk = blks[lo:lo + REG_CHUNK]
+        b = (blk // (geo.nb[1] * geo.nb[2]), (blk // geo.nb[2]) % geo.nb[1], blk % geo.nb[2])
+        inside = ((loc[0] < ex[0, blk, None]) & (loc[1] < ex[1, blk, None])
+                  & (loc[2] < ex[2, blk, None]))
+        c = cs[blk]
+        pred = c[:, 0:1] * locf[0] + c[:, 1:2] * locf[1] + c[:, 2:3] * locf[2] + c[:, 3:4]
+        yield [(b[a][:, None] * BS + loc[a])[inside] for a in range(3)], pred[inside]
+
+
+def cell_index(grid, x, y, z):
+    """(flat index in the rounded grid `grid`, flat index in its padded
+    grid) of the cells (x, y, z), int64."""
+    nx, ny, nz = grid
+    return (x * ny + y) * nz + z, ((x + PAD) * (ny + PAD) + (y + PAD)) * (nz + PAD) + (z + PAD)
 
 
 def cell_types(geo: Geometry, block_types: torch.Tensor) -> torch.Tensor:
@@ -104,15 +130,15 @@ def padded_grid(geo: Geometry, inner: torch.Tensor) -> torch.Tensor:
     return r
 
 
-def reg_preplace_decode(geo: Geometry, types: torch.Tensor, bins: torch.Tensor,
-                        lits: torch.Tensor, coefs: torch.Tensor, eb: float,
-                        radius: int) -> torch.Tensor:
+def reg_preplace_decode(geo: Geometry, rec: torch.Tensor, is_reg: torch.Tensor,
+                        bins: torch.Tensor, lits: torch.Tensor, coefs: torch.Tensor, eb: float,
+                        radius: int) -> None:
     """The regression cells recovered against their blocks' plane
-    predictions, zeros elsewhere: the rounded grid the sweep starts from."""
-    pred = plane_prediction(geo, coefs).reshape(geo.grid)
-    rec = recover(pred, bins, lits, eb, radius)
-    reg_cell = (types == T_KEEP) & valid_cells(geo, types.device)
-    return torch.where(reg_cell, rec, 0.0)
+    predictions, written in place into the padded reconstruction `rec`."""
+    flat, bflat, lflat = rec.view(-1), bins.reshape(-1), lits.reshape(-1)
+    for xyz, pred in reg_cells(geo, is_reg, coefs):
+        cell, pad = cell_index(geo.grid, *xyz)
+        flat[pad] = recover(pred, bflat[cell], lflat[cell], eb, radius)
 
 
 # ---- the element sweep ------------------------------------------------------------
@@ -120,14 +146,11 @@ def reg_preplace_decode(geo: Geometry, types: torch.Tensor, bins: torch.Tensor,
 def _plane_cells(grid, t: int, yz: torch.Tensor):
     """The cells of plane x + y + z = t: (flat index in the rounded grid,
     flat index in the padded grid), int64."""
-    nx, ny, nz = grid
+    nz = grid[2]
     y, z = yz // nz, yz % nz
     x = t - y - z
-    on = (x >= 0) & (x < nx)
-    x, y, z = x[on], y[on], z[on]
-    cell = (x * ny + y) * nz + z
-    pad = ((x + PAD) * (ny + PAD) + (y + PAD)) * (nz + PAD) + (z + PAD)
-    return cell, pad
+    on = (x >= 0) & (x < grid[0])
+    return cell_index(grid, x[on], y[on], z[on])
 
 
 def lorenzo_predictions(rec: torch.Tensor, p: torch.Tensor, sx: int, sy: int):

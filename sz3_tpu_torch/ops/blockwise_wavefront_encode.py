@@ -49,9 +49,9 @@ import torch
 
 from .. import runtime
 from .blockwise_layout import (BS, PAD, T_KEEP, T_L1, Geometry, _noise, blocked, extents,
-                               geometry, per_block, reg_valid, to_blocks, valid_cells)
-from .blockwise_wavefront import (cell_types, check_sweep, lorenzo_sweep, padded_grid,
-                                  plane_prediction, sweep_planes)
+                               geometry, reg_valid, valid_cells)
+from .blockwise_wavefront import (cell_index, cell_types, check_sweep, lorenzo_sweep,
+                                  padded_grid, reg_cells, sweep_planes)
 from .quantize import quantize
 
 E = BS ** 3
@@ -145,16 +145,24 @@ def select(geo: Geometry, orig_p: torch.Tensor, tap_p: torch.Tensor, ex: torch.T
     return pick_reg & valid, ~(pick_reg & ~valid)
 
 
-def reg_preplace_encode(geo: Geometry, x_grid: torch.Tensor, is_reg_cell: torch.Tensor,
-                        coefs: torch.Tensor, eb: float, radius: int):
-    """The regression cells quantized against their blocks' plane
-    predictions (from the chain's reconstructed coefficients (nb0, nb1, nb2,
-    4)): (bins int32, reconstruction float32) on the rounded grid, zeros
-    outside the regression cells (_reg_preplace in the JAX package, which
-    runs it in numpy on the host)."""
-    pred = plane_prediction(geo, coefs).reshape(geo.grid)
-    bins, rec = quantize(x_grid, pred, eb, radius)
-    return torch.where(is_reg_cell, bins, 0), torch.where(is_reg_cell, rec, 0.0)
+def reg_preplace_encode(geo: Geometry, g: torch.Tensor, rec: torch.Tensor,
+                        is_reg: torch.Tensor, coefs: torch.Tensor, eb: float, radius: int):
+    """The regression cells of the rounded grid `g` quantized against their
+    blocks' plane predictions (coefs: the chain's reconstructed coefficients
+    (nb0, nb1, nb2, 4)), their reconstruction written in place into the
+    padded `rec`. Returns the cells' (flat indices in the rounded grid int64,
+    bins int32) (_reg_preplace in the JAX package, which runs it in numpy
+    on the host)."""
+    flat, gflat = rec.view(-1), g.reshape(-1)
+    cells = [torch.zeros(0, dtype=torch.int64, device=g.device)]
+    bins = [torch.zeros(0, dtype=torch.int32, device=g.device)]
+    for xyz, pred in reg_cells(geo, is_reg, coefs):
+        cell, pad = cell_index(geo.grid, *xyz)
+        b, r = quantize(gflat[cell], pred, eb, radius)
+        flat[pad] = r
+        cells.append(cell)
+        bins.append(b)
+    return torch.cat(cells), torch.cat(bins)
 
 
 def sweep_encode_plain(rec: torch.Tensor, types: torch.Tensor, orig: torch.Tensor,
@@ -218,10 +226,10 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
     g = torch.zeros(geo.grid, dtype=torch.float32, device=dev)
     g[:geo.dims[0], :geo.dims[1], :geo.dims[2]] = x
     ex = extents(geo, dev)
-    inside = valid_cells(geo, dev)
     if use_reg:
-        raw = fits(to_blocks(g, geo).t().contiguous(), to_blocks(inside, geo).t().contiguous(),
-                   ex.reshape(3, -1))                                      # (4, nblk)
+        def by_cell(a):         # (216, nblk): one row per in-block cell
+            return blocked(a, geo).permute(1, 3, 5, 0, 2, 4).reshape(E, geo.nblk)
+        raw = fits(by_cell(g), by_cell(valid_cells(geo, dev)), ex.reshape(3, -1))  # (4, nblk)
     else:
         raw = torch.zeros((4, geo.nblk), dtype=torch.float32, device=dev)
     raw_host = raw.t().cpu().numpy()                                       # (nblk, 4)
@@ -233,6 +241,8 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
     else:
         is_reg, ok = select(geo, orig_p, orig_p, ex, raw_g, eb)
 
+    # the sweep's reconstruction, made again in place by every pass
+    rec = torch.empty(geo.padded, dtype=torch.float32, device=dev)
     passes, firsts, last_first = 0, [], -1
     while True:
         passes += 1
@@ -241,11 +251,11 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
         regb, creg = runtime.blockwise_coef_chain_encode(eb / 4 / BS, eb / 4, raw_commit)
         coef_rec = np.zeros((geo.nblk, 4), np.float32)
         coef_rec[is_reg_h] = creg
-        reg_cell = (blocked(inside, geo) & per_block(is_reg, geo)).reshape(geo.grid)
-        bins_reg, rec_reg = reg_preplace_encode(
-            geo, g, reg_cell, torch.from_numpy(coef_rec).to(dev).reshape(*geo.nb, 4), eb, radius)
+        rec.zero_()
+        reg_idx, reg_bins = reg_preplace_encode(
+            geo, g, rec, is_reg, torch.from_numpy(coef_rec).to(dev).reshape(*geo.nb, 4), eb,
+            radius)
         types = cell_types(geo, torch.where(is_reg, T_KEEP, T_L1).to(torch.uint8).reshape(-1))
-        rec = padded_grid(geo, rec_reg)
         bins = sweep_encode(rec, types, g, eb, radius)
         if single:
             firsts.append(-1)
@@ -261,6 +271,7 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
                                f"{last_first}")
         last_first = first
         is_reg = is_reg_true
+        del bins, types, reg_idx, reg_bins      # the next pass makes them anew
     if stats is not None:
         stats["passes"] = passes
         stats["first_differences"] = firsts
@@ -270,5 +281,6 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
         selection = is_reg_h[ok.reshape(-1).cpu().numpy()].astype(np.int32)
     ql_unpred = raw_commit[:, :3][regb[:, :3] == 0].astype(np.float32)
     qi_unpred = raw_commit[:, 3][regb[:, 3] == 0].astype(np.float32)
-    return (bins + bins_reg, g, selection, regb.reshape(-1).astype(np.int32), ql_unpred,
+    bins.view(-1)[reg_idx] = reg_bins        # the sweep leaves 0 at regression cells
+    return (bins, g, selection, regb.reshape(-1).astype(np.int32), ql_unpred,
             qi_unpred)

@@ -49,12 +49,25 @@ def to_stream(grid: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return grid.reshape(-1).index_select(0, perm)
 
 
+def cache_device(device) -> torch.device:
+    """`device` as a key of the permutation caches: one entry per card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def from_stream(dense: torch.Tensor, perm: torch.Tensor, numel: int) -> torch.Tensor:
-    """Stream-order values -> flat grid order (the inverse of to_stream)."""
-    if dense.shape != (numel,) or perm.shape != (numel,):
+    """Stream-order values -> flat grid order (the inverse of to_stream).
+    Grid points that no stream slot maps to are zeros."""
+    n = dense.shape[0] if dense.dim() == 1 else -1
+    if dense.dim() != 1 or perm.shape != dense.shape or n > numel:
         raise ValueError(f"stream of {tuple(dense.shape)} and permutation of "
                          f"{tuple(perm.shape)} do not fit a grid of {numel} points")
-    grid = torch.empty(numel, dtype=dense.dtype, device=dense.device)
+    if n == numel:
+        grid = torch.empty(numel, dtype=dense.dtype, device=dense.device)
+    else:
+        grid = torch.zeros(numel, dtype=dense.dtype, device=dense.device)
     grid[perm] = dense
     return grid
 

@@ -28,6 +28,7 @@ from sz3_tpu_torch.ops import blockwise_layout as bl
 from sz3_tpu_torch.ops import blockwise_wavefront as wf
 from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
 from sz3_tpu_torch.ops import entropy_device as ted
+from sz3_tpu_torch.ops import stream_order
 
 from conftest import GOLDEN
 
@@ -113,6 +114,16 @@ def test_constant_field_and_thin_blocks(shape, constant):
     x = np.full(shape, 2.5, np.float32) if constant else _field(shape, seed=4)
     blob = _same_as_engine(x, lambda ns: _conf(ns, shape, eb=1e-2))
     assert szp.open_archive(blob)[0].cmprAlgo == P.ALGO.LORENZO_REG
+
+
+@pytest.mark.parametrize("chunk", [1, 5])
+@pytest.mark.parametrize("roster", ["default", "reg_only"])
+def test_regression_cells_placed_in_chunks(monkeypatch, chunk, roster):
+    """Regression cells placed a few blocks at a time (a field of many
+    regression blocks at full size) give the engine's archive and decode."""
+    monkeypatch.setattr(wf, "REG_CHUNK", chunk)
+    x = _field((20, 19, 17), seed=_seed(roster, (chunk,)))
+    _same_as_engine(x, lambda ns: _conf(ns, x.shape, roster=ROSTERS[roster]))
 
 
 def test_nonfinite_and_subnormal_values():
@@ -288,8 +299,9 @@ def test_layout_matches_jax(shape):
     stream = torch.from_numpy(grid).reshape(-1)[bl.perm_for(shape, "cpu").long()].numpy()
     want = np.concatenate([jbd._block_vals(x, nb, i)[masks[i]] for i in range(geo.nblk)])
     assert np.array_equal(_bits(stream), _bits(want))
-    back = bl.scatter_grid(torch.from_numpy(stream), bl.perm_for(shape, "cpu"), geo)
-    assert torch.equal(back, torch.from_numpy(grid))
+    back = stream_order.from_stream(torch.from_numpy(stream), bl.perm_for(shape, "cpu"),
+                                    geo.ncells)
+    assert torch.equal(back.reshape(geo.grid), torch.from_numpy(grid))
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
