@@ -25,7 +25,9 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      inputs and on a synthetic 253x255x257 grid (random first-order,
      second-order and kept cells, bins across the quantizer's range, NaN,
      Inf and subnormal values), with its bytes bound and its dependency
-     bound (planes times one empty dependent launch, measured here);
+     bound (planes times one empty dependent launch, measured here); the
+     BIOMD frame recurrence (biomd_frames) in both forms on 64 frames of
+     9,999 atoms (sites 3 and 4) with NaN, Inf, subnormal and huge values;
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
      from radius, a constant stream, f64, codes over 32 bits) compressed and
      decompressed on the card, archives sha256-equal to the host engine's
@@ -46,7 +48,19 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      fields, against the host engine as in phase 4, every kernel launched
      on it (counted over these calls alone), walls, each stage of the
      encode and the decode, the certification passes, peak device memory
-     of a warm encode and decode, and the busy share.
+     of a warm encode and decode, and the busy share;
+  6. the other archive forms, each against the host engine as in phase 5
+     (archives sha256-equal, decodes bit-equal, launches counted over the
+     calls alone, walls cold and warm, stages with their device memory
+     peaks): NOPRED on nyx_like(512) f32 and nyx_like(256) f64, with K1's
+     window shares on its element-order stream; OpenMP-format archives of
+     the default Config on nyx_like(512) in 8 chunks at ABS 1e-3 and REL
+     1e-3 and in 6 (ragged), each decoded across (the port's archive by the
+     engine, the engine's on the card); BIOMD and BIOMDXTC on a water-like
+     trajectory of 500 frames of the ApoA1 system's 92,224 atoms (553 MB),
+     and on one with 100 trailing fill frames; biomd_frames against its
+     plain versions at that shape, timed; the golden NOPRED, OpenMP, BIOMD
+     and BIOMDXTC archives decoded on the card.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -59,6 +73,7 @@ import contextlib
 import hashlib
 import itertools
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -77,6 +92,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # the kernels are 32-bit integer work outside the tensor cores; the float32
 # rate outside the tensor cores stands in as their peak
 OPS_PER_S = 67e12
+
+
+TRAJ_FRAMES, TRAJ_ATOMS = 500, 92_224   # the ApoA1 MD benchmark system's atoms
+CHUNKS = 8
+
+
+def md_traj(frames, atoms, seed=0, fill_tail=0, site_atoms=3):
+    """A water-like trajectory, (frames, atoms, 3) float32: molecules of
+    `site_atoms` atoms around random centres, each atom a random walk; the
+    last `fill_tail` frames filled with -1 (the port's copy of
+    tests/test_biomd_device.py::md_traj)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = atoms // site_atoms + 1
+    base = rng.uniform(-5, 5, (g, 1, 3)).repeat(site_atoms, axis=1)
+    base = (base + rng.normal(0, 0.05, (g, site_atoms, 3))).reshape(-1, 3)[:atoms]
+    traj = base[None] + np.cumsum(rng.normal(0, 0.01, (frames, atoms, 3)), axis=0)
+    if fill_tail:
+        traj[-fill_tail:] = -1.0
+    return np.ascontiguousarray(traj, dtype=np.float32)
 
 
 def fail(msg: str):
@@ -124,20 +160,22 @@ def main() -> int:
     from sz3_tpu_torch.algos import torch_backend
     from sz3_tpu_torch.algos.huffman import build_table
     from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import biomd_device as bd
     from sz3_tpu_torch.ops import blockwise_layout as bl
     from sz3_tpu_torch.ops import blockwise_wavefront as wf
     from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
     from sz3_tpu_torch.ops import entropy_decode as dec
     from sz3_tpu_torch.ops import entropy_device as ed
     from sz3_tpu_torch.ops import stream_order
+    from sz3_tpu_torch.ops import xtc_device as xtc
     from sz3_tpu_torch.ops.interp_fast import (bins_to_grid, decode_grid_fast, encode_grid_fast,
                                                grid_to_pass_slices, initial_literal)
 
     dev = torch.device("cuda")
 
-    def native_compress(data, conf):
+    def native_compress(data, conf, nthreads=0):
         c, cap = archive_conf(data, conf)
-        return szp.pack_archive(c, runtime.compress_payload(c, data, cap))
+        return szp.pack_archive(c, runtime.compress_payload(c, data, cap, nthreads))
 
     def native_decompress(blob):
         conf, payload = szp.open_archive(blob)
@@ -836,6 +874,45 @@ def main() -> int:
     del s_rec, s_types, s_bins, s_vals
     torch.cuda.empty_cache()
 
+    # the BIOMD frame recurrence (biomd_frames.cu) in both forms against its
+    # plain versions, bit for bit: 64 frames x 9,999 atoms x 3 (not a multiple
+    # of 4: the last molecule of site 4 has 3 atoms) with NaN, Inf, subnormal
+    # and huge values, frame 0 reconstructed by the host engine; the recover
+    # form on the encode's bins and on bins across the quantizer's range.
+    # Times at the main path's shape are taken in phase 6.
+    frames_err = 0
+    for site in (3, 4):
+        traj = md_traj(64, 9_999, seed=site, site_atoms=site)
+        live = traj[1:].reshape(-1)
+        live[::97] = np.nan
+        live[5::131] = np.inf
+        live[7::137] = -np.inf
+        live[11::139] = np.float32(3e-39)
+        live[13::149] = np.float32(2.0 ** 40)
+        _, recon0, _ = runtime.biomd_frame0(EB, radius, site, traj[0])
+        xt = torch.from_numpy(np.ascontiguousarray(traj[1:])).to(dev)
+        r0 = torch.from_numpy(recon0).to(dev)
+        bk = bd.frames_encode(xt, r0, EB, radius, site)
+        bp = bd.frames_encode_plain(xt, r0, EB, radius, site)
+        torch.cuda.synchronize()
+        err = max_abs_diff(bk, bp)
+        rand_bins = torch.from_numpy(np.where(
+            np.random.default_rng(site).random(xt.shape) < 0.05, 0,
+            np.random.default_rng(site).integers(1, 2 * radius, xt.shape)).astype(np.int32)).to(dev)
+        for b in (bk, rand_bins):
+            lits = torch.where(b == 0, xt, 0.0)
+            rk = bd.frames_recover(b, lits, r0, EB, radius, site)
+            rp = bd.frames_recover_plain(b, lits, r0, EB, radius, site)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_diff(rk.view(torch.int32), rp.view(torch.int32)))
+        check(err == 0, f"biomd_frames site {site}: differs from its plain version (max abs "
+                        f"diff {err})")
+        frames_err = max(frames_err, err)
+        print(f"biomd_frames site {site} ({tuple(xt.shape)} frames after frame 0): both forms "
+              f"bit-equal to plain (literals {int((bk == 0).sum())} of {bk.numel()})", flush=True)
+        del xt, r0, bk, bp, rand_bins, lits, rk, rp, traj, live
+    torch.cuda.empty_cache()
+
     stamp("phase 2 done")
 
     # ---- phase 3: inputs the JAX package hands to the host ----------------------
@@ -1320,13 +1397,307 @@ def main() -> int:
     print(f"LORENZO_REG path launches {lr_launches}; encode passes {lr_passes}", flush=True)
     for k, v in lr_launches.items():
         check(v >= 1, f"kernel {k} was not launched on the LORENZO_REG path")
+    stamp("phase 5 done")
+
+    # ---- phase 6: NOPRED, OpenMP-format archives, BIOMD and BIOMDXTC --------------
+    # each against the host engine at full size: archives sha256-equal, decodes
+    # bit-equal; launches counted over the compress / decompress calls alone
+    p6_counters = dict(counters, biomd_frames=bd.biomd_frames)
+    p6_launches = dict.fromkeys(p6_counters, 0)
+
+    def drive6(fn):
+        for w in p6_counters.values():
+            w.launches = 0
+        out = sync_time(fn)
+        seen = {k: w.launches for k, w in p6_counters.items()}
+        for k, v in seen.items():
+            p6_launches[k] += v
+        return out, {k: v for k, v in seen.items() if v}
+
+    def conf6(algo=None, **kw):
+        c = szp.Config(absErrorBound=EB, **kw)
+        if algo is not None:
+            c.cmprAlgo = algo
+        return c
+
+    nopred_enc_stages = [(de, "quantize", "quantize"), (ed, "hist_and_literals", "K1"),
+                         (de, "_tree_and_tables", "host tree"), (ed, "pack_bits", "K2+K3"),
+                         (de, "_stream_bytes", "D2H stream"),
+                         (runtime, "nopred_seal_packed", "host seal"),
+                         (runtime, "zstd_compress", "zstd of the ratio rule")]
+    nopred_dec_stages = [(runtime, "open_packed", "host zstd open"),
+                         (dd, "dense_bins", "Huffman decode"), (dec, "scan_windows", "count phase"),
+                         (dec, "write_windows", "write phase"), (dd, "recover", "recover")]
+    omp_enc_stages = [(runtime, "tune_interp", "host tune"),
+                      (torch_backend, "compress_payload_torch", "chunk"),
+                      (de, "encode_payload_device", "device encode"),
+                      (runtime, "interp_seal_packed", "host seal")]
+    omp_dec_stages = [(torch_backend, "decompress_payload_torch", "chunk"),
+                      (runtime, "open_packed", "host zstd open"),
+                      (dd, "dense_bins", "Huffman decode"),
+                      (dd, "decode_payload_device", "device decode")]
+    biomd_enc_stages = [(runtime, "biomd_frame0", "host frame 0"),
+                        (bd, "frames_encode", "frames 1..last"),
+                        (runtime, "biomd_seal", "host seal")]
+    biomd_dec_stages = [(runtime, "biomd_open", "host open"),
+                        (runtime, "biomd_frame0_open", "host frame 0"),
+                        (bd, "frames_recover", "frames 1..last")]
+    xtc_enc_stages = [(xtc, "xtc_quantize", "quantize"),
+                      (runtime, "biomdxtc_seal", "host XTC coder")]
+    xtc_dec_stages = [(runtime, "biomdxtc_open", "host XTC decode"),
+                      (xtc, "xtc_recover", "recover")]
+
+    def staged(stages, spec, fn, rest):
+        """fn() with each stage of `spec` timed and its device memory peak;
+        prints both and the whole call's time; with `rest` (stages that do
+        not nest) also the time outside them."""
+        mem = {}
+        with timed(spec, mem) as st:
+            out, all_s = sync_time(fn)
+        outside = (f" (outside the stages: {all_s - sum(sum(v) for v in st.values()):.4f})"
+                   if rest else "")
+        print(f"  {stages} (s): {stage_line(st, spec)}; all {all_s:.4f}{outside}", flush=True)
+        print(f"  {stages}, peak device memory above what each began with (MiB): "
+              f"{mem_line(mem)}", flush=True)
+        return out
+
+    compress_torch = torch_backend.compress_payload_torch
+    decompress_torch = torch_backend.decompress_payload_torch
+
+    def case6(label, data, make_conf, enc_spec, dec_spec, expect, nthreads=0, bound_eb=EB,
+              busy_too=False, capture=None, rest=(False, False)):
+        """One phase-6 case: the host engine's archive and decode, the port's
+        cold and warm compress and first and warm decompress on the card,
+        checked equal; walls, launches, peaks, and with stage specs the
+        stages. Returns (archive, captured arguments)."""
+        blob_native, native_enc_s = sync_time(lambda: native_compress(data, make_conf(),
+                                                                      nthreads))
+        ref_out, native_dec_s = sync_time(lambda: native_decompress(blob_native))
+        sha_native = hashlib.sha256(blob_native).hexdigest()
+        grabbed = {}
+        with contextlib.ExitStack() as stack:
+            for mod, name in capture or []:
+                grabbed[name] = stack.enter_context(captured(mod, name))
+            (blob_cold, enc_cold_s), _ = drive6(
+                lambda: szp.compress(data, make_conf(), device="cuda", nthreads=nthreads))
+            ((out, _), dec_s), _ = drive6(lambda: szp.decompress(blob_native, device="cuda"))
+        del out
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (blob_warm, enc_warm_s), enc_seen = drive6(
+            lambda: szp.compress(data, make_conf(), device="cuda", nthreads=nthreads))
+        enc_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ((out, oconf), dec_warm_s), dec_seen = drive6(
+            lambda: szp.decompress(blob_native, device="cuda"))
+        dec_peak = torch.cuda.max_memory_allocated() - held
+        for tag, b in (("cold", blob_cold), ("warm", blob_warm)):
+            check(hashlib.sha256(b).hexdigest() == sha_native,
+                  f"{label} {tag} archive sha256 differs from the host engine's")
+        out_np = out.cpu().numpy()
+        check(out_np.shape == ref_out.shape and out_np.tobytes() == ref_out.tobytes(),
+              f"{label}: decode not bit-equal to the host engine's")
+        err = float(np.abs(out_np.astype(np.float64) - data.astype(np.float64)).max())
+        check(err <= bound_eb, f"{label}: max error {err} > {bound_eb}")
+        got = {"enc": enc_seen, "dec": dec_seen}
+        for side, want in expect.items():
+            check(want(got[side]), f"{label}: {side} launched {got[side]}")
+        mb = data.nbytes / 1e6
+        algo = szp.open_archive(blob_native)[0]
+        print(f"{label} ({mb:.0f} MB {data.dtype}, {algo.cmprAlgo.name}"
+              f"{', openmp' if algo.openmp else ''}, ratio {data.nbytes / len(blob_cold):.2f}): "
+              f"archive sha256 == host engine {sha_native[:16]}; decode bit-equal; max err "
+              f"{err:.3e}", flush=True)
+        print(f"  encode wall: port cold {enc_cold_s:.3f} s, port warm {enc_warm_s:.3f} s "
+              f"({mb / enc_warm_s / 1e3:.3f} GB/s), host engine {native_enc_s:.3f} s", flush=True)
+        print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
+              f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; launches "
+              f"per compress {enc_seen}, per decompress {dec_seen}", flush=True)
+        print(f"  peak device memory above what was held before the call: warm compress "
+              f"{enc_peak / 2**30:.3f} GiB ({enc_peak / data.nbytes:.2f} bytes a field byte), "
+              f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f})",
+              flush=True)
+        del out, out_np
+        if enc_spec is None:
+            torch.cuda.empty_cache()
+            stamp(f"{label} done")
+            return blob_native, {k: v["args"] for k, v in grabbed.items()}
+        c, cap = archive_conf(data, make_conf())
+        payload = staged("encode stages", enc_spec,
+                         lambda: compress_torch(c, data, cap, dev, nthreads), rest[0])
+        check(payload == szp.open_archive(blob_native)[1], f"{label}: staged payload differs")
+        dc, dpayload = szp.open_archive(blob_native)
+        staged("decode stages", dec_spec, lambda: decompress_torch(dc, dpayload, None, dev),
+               rest[1])
+        if busy_too:
+            for what, fn in (("encode", lambda: szp.compress(data, make_conf(), device="cuda",
+                                                             nthreads=nthreads)),
+                             ("decode", lambda: szp.decompress(blob_native, device="cuda"))):
+                busy_ms, wall_ms, events, kinds = busy(fn)
+                share = f"{100 * busy_ms / wall_ms:.2f} %" if events else "not measured"
+                split = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(kinds.items()))
+                print(f"  device busy, warm {what} under torch.profiler: {busy_ms:.2f} ms of "
+                      f"{wall_ms:.2f} ms wall ({share}; {events} device events; {split})",
+                      flush=True)
+        torch.cuda.empty_cache()
+        stamp(f"{label} done")
+        return blob_native, {k: v["args"] for k, v in grabbed.items()}
+
+    # NOPRED: 512^3 float32 and 256^3 float64; K1 on the element-order stream
+    nopred = szp.ALGO.NOPRED
+    case6("NOPRED 512^3", fields[512], lambda: conf6(nopred), nopred_enc_stages,
+          nopred_dec_stages, {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
+                              "dec": lambda s: s.get("huff_scan", 0) >= 1
+                              and s.get("huff_write") == 1},
+          busy_too=True, rest=(True, False))
+    # K1 on the NOPRED stream: the bins in element order
+    np_rad = conf6(nopred).quantbinCnt // 2
+    xf = torch.from_numpy(fields[512].reshape(-1)).to(dev)
+    np_stream = de.quantize(xf, torch.zeros_like(xf), EB, np_rad)[0]
+    del xf
+    np_hist, np_slots = ed.hist_and_literals(np_stream, np_rad)
+    np_call, np_dev, np_kern = k1_on_card(np_stream, np_rad)
+    np_bound = bound(4 * np_stream.numel() + 4 * ed.table_len(np_rad) + 4 * np_slots.numel(),
+                     4 * np_stream.numel())
+    far = (np_stream[np_stream != 0].to(torch.int64) - np_rad).abs()
+    print(f"  K1 on the NOPRED 512^3 stream ({np_stream.numel()} symbols in element order, "
+          f"{int((np_hist[2:] > 0).sum())} distinct, farthest {int(far.max())} bins from radius, "
+          f"{outside_k1_window(np_hist, np_rad)} outside K1's +-{ed.K1_W_HALF} window): "
+          f"{np_call:.4f} ms a call, {np_dev:.4f} ms on the card ({np_kern:.4f} ms kernels and "
+          f"fill), bound {np_bound[0]:.4f} ms by {np_bound[1]}; share of the symbols within "
+          f"+-64/512/2048/8190 of radius: "
+          + " / ".join(f"{v:.5f} %" for v in window_shares(np_stream, np_rad)), flush=True)
+    del np_stream, np_hist, np_slots, far
+    torch.cuda.empty_cache()
+    case6("NOPRED 256^3 f64", fields[256].astype(np.float64), lambda: conf6(nopred),
+          nopred_enc_stages, nopred_dec_stages,
+          {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
+           "dec": lambda s: s.get("huff_write") == 1}, rest=(True, False))
+
+    # OpenMP-format archives: the default Config (tuner on), chunks on the
+    # card one after the other, against the engine's threaded path at the
+    # same chunk count; a ragged count; cross decodes
+    omp_cases = {
+        f"chunked ABS 1e-3, {CHUNKS} chunks, 512^3": (lambda: conf6(openmp=True), CHUNKS, EB),
+        f"chunked REL 1e-3, {CHUNKS} chunks, 512^3": (
+            lambda: szp.Config(errorBoundMode=szp.EB.REL, relErrorBound=1e-3, openmp=True),
+            CHUNKS, 1e-3 * float(fields[512].max() - fields[512].min())),
+        "chunked ABS 1e-3, 6 chunks (ragged), 512^3": (lambda: conf6(openmp=True), 6, EB),
+    }
+    for label, (make, n, eb_b) in omp_cases.items():
+        blob_native, _ = case6(label, fields[512], make, omp_enc_stages, omp_dec_stages,
+                               {"enc": lambda s, n=n: s.get("hist_literals") == n
+                                and s.get("pack_bits") == n,
+                                "dec": lambda s, n=n: s.get("huff_write") == n},
+                               nthreads=n, bound_eb=eb_b, busy_too=n == CHUNKS and "ABS" in label)
+        blob_port = szp.compress(fields[512], make(), device="cuda", nthreads=n)
+        by_engine = native_decompress(blob_port)
+        by_port = szp.decompress(blob_native, device="cuda")[0].cpu().numpy()
+        check(by_engine.tobytes() == by_port.tobytes(),
+              f"{label}: cross decodes (port -> engine, engine -> port) differ")
+        nch = struct.unpack_from("<i", szp.open_archive(blob_native)[1], 0)[0]
+        check(nch == n, f"{label}: {nch} chunks")
+        print(f"  cross decode: the port's archive in the engine and the engine's on the card, "
+              f"bit-equal ({nch} chunks)", flush=True)
+        del blob_port, by_engine, by_port
+
+    # BIOMD and BIOMDXTC on a water-like trajectory of the ApoA1 system's
+    # atoms, and the same with a tail of fill frames
+    t = time.perf_counter()
+    trajs = {"": md_traj(TRAJ_FRAMES, TRAJ_ATOMS, seed=0),
+             ", 100 fill frames": md_traj(TRAJ_FRAMES, TRAJ_ATOMS, seed=2, fill_tail=100)}
+    print(f"trajectories {TRAJ_FRAMES} x {TRAJ_ATOMS} x 3: {time.perf_counter() - t:.2f} s",
+          flush=True)
+    for traj in trajs.values():      # three-site water, as the reference detects it
+        check(bd.cal_site(traj[1]) == 3, f"trajectory site {bd.cal_site(traj[1])}, not 3")
+    bio_args = {}
+    for tag, traj in trajs.items():
+        for algo, enc_spec, dec_spec in ((szp.ALGO.BIOMD, biomd_enc_stages, biomd_dec_stages),
+                                         (szp.ALGO.BIOMDXTC, xtc_enc_stages, xtc_dec_stages)):
+            biomd = algo == szp.ALGO.BIOMD
+            want = {"biomd_frames": 1} if biomd else {}
+            # the stages of the case with fill frames are those of the first
+            _, got = case6(f"{algo.name} {TRAJ_FRAMES}x{TRAJ_ATOMS}x3{tag}", traj,
+                           lambda algo=algo: conf6(algo), None if tag else enc_spec,
+                           None if tag else dec_spec,
+                           {"enc": lambda s, want=want: s == want,
+                            "dec": lambda s, want=want: s == want},
+                           bound_eb=EB * 1.2, busy_too=not tag,
+                           capture=[(bd, "frames_encode"), (bd, "frames_recover")]
+                           if biomd and not tag else None, rest=(True, True))
+            bio_args.update(got)
+    del trajs
+
+    # the recurrence at the main path's shape: kernel against plain, bit for
+    # bit, and timed (plain, kernel, kernel, plain; the plain loop once)
+    fx, fr0, feb, frad, fsite = bio_args["frames_encode"]
+    fb, flits, _, _, _, _ = bio_args["frames_recover"]
+    check(torch.equal(bd.frames_encode(fx, fr0, feb, frad, fsite),
+                      bd.frames_encode_plain(fx, fr0, feb, frad, fsite))
+          and torch.equal(bd.frames_recover(fb, flits, fr0, feb, frad, fsite).view(torch.int32),
+                          bd.frames_recover_plain(fb, flits, fr0, feb, frad, fsite)
+                          .view(torch.int32)),
+          "biomd_frames at the main path's shape differs from its plain version")
+    bfe_ms, bfe_plain_ms, bfe_runs = paired_ms(
+        lambda: bd.frames_encode(fx, fr0, feb, frad, fsite),
+        lambda: bd.frames_encode_plain(fx, fr0, feb, frad, fsite), plain_reps=1)
+    bfr_ms, bfr_plain_ms, bfr_runs = paired_ms(
+        lambda: bd.frames_recover(fb, flits, fr0, feb, frad, fsite),
+        lambda: bd.frames_recover_plain(fb, flits, fr0, feb, frad, fsite), plain_reps=1)
+    fcells = fx.numel()
+    fzero = int((fb == 0).sum())
+    # encode: the frames read, the bins written, frame 0's reconstruction read;
+    # recover: the bins and the literals at their zero bins read, the
+    # reconstruction written. Operations: some 20 a cell to quantize, 6 to
+    # recover, 2 for the prediction
+    bfe_bound = bound(8 * fcells + 4 * fr0.numel(), 22 * fcells)
+    bfr_bound = bound(8 * fcells + 4 * fzero + 4 * fr0.numel(), 8 * fcells)
+    print(f"biomd_frames at {tuple(fx.shape)} (site {fsite}): bit-equal to plain; recover "
+          f"kernel {bfr_ms:.4f} ms, plain {bfr_plain_ms:.2f} ms ({[round(v, 4) for v in bfr_runs]}"
+          f"), bound {bfr_bound[0]:.5f} ms by {bfr_bound[1]}; encode kernel {bfe_ms:.4f} ms, plain "
+          f"{bfe_plain_ms:.2f} ms ({[round(v, 4) for v in bfe_runs]}), bound {bfe_bound[0]:.5f} ms "
+          f"by {bfe_bound[1]}; one launch a call (the plain loop {2 + 3 * fx.shape[0]} or more "
+          f"PyTorch calls); no PyTorch call computes it", flush=True)
+    del bio_args, fx, fr0, fb, flits
+
+    # the golden NOPRED, OpenMP, BIOMD and BIOMDXTC archives decoded on the card
+    for case in manifest:
+        if not any(k in case["name"] for k in ("nopred", "omp", "biomd")):
+            continue
+        ref = (ROOT / "tests" / "golden" / f"{case['name']}.sz").read_bytes()
+        gdt = np.dtype(case["dtype"])
+        for w in p6_counters.values():
+            w.launches = 0
+        out, gconf = szp.decompress(ref, device="cuda", dtype=gdt)
+        seen = {k: w.launches for k, w in p6_counters.items() if w.launches}
+        gconf_ref, gpayload = szp.open_archive(ref)
+        want = runtime.decompress_payload(gconf_ref, gpayload,
+                                          dtype=runtime.np_dtype_id(np.empty(0, gdt)))
+        out = out.cpu().numpy()
+        check(out.tobytes() == want.tobytes(),
+              f"golden {case['name']}: decode not bit-equal to the host engine's")
+        check(hashlib.sha256(out.tobytes()).hexdigest() == case["out_sha"],
+              f"golden {case['name']}: decode hash differs from the manifest's")
+        print(f"golden {case['name']} ({tuple(case['shape'])} {gdt}, {gconf.cmprAlgo.name}"
+              f"{', openmp' if gconf.openmp else ''}): decoded on the card, bit-equal to the host "
+              f"engine and to the recorded hash; launches {seen}", flush=True)
+
+    print(f"phase 6 launches {p6_launches}", flush=True)
+    for k in ("hist_literals", "pack_bits", "huff_scan", "huff_write", "biomd_frames"):
+        check(p6_launches[k] >= 1, f"kernel {k} was not launched in phase 6")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"sz3_tpu_torch/csrc/{source}",
-                "replaces": replaces, **extra, "launches": launches.get(name, lr_launches[name]),
+                "replaces": replaces, **extra,
+                "launches": next(d[name] for d in (launches, lr_launches, p6_launches)
+                                 if name in d),
                 "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
@@ -1346,9 +1717,15 @@ def main() -> int:
             also_replaces="sz3_tpu/ops/blockwise_wavefront_encode.py:284",
             encode_ms=swe_ms, encode_plain_ms=swe_plain_ms, encode_bound_ms=swe_bound[0],
             encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms),
+        row("biomd_frames", "biomd_frames.cu", "sz3_tpu/ops/biomd_device.py:117", frames_err,
+            bfr_ms, bfr_plain_ms, bfr_bound, None,
+            also_replaces="sz3_tpu/ops/biomd_device.py:95", encode_ms=bfe_ms,
+            encode_plain_ms=bfe_plain_ms, encode_bound_ms=bfe_bound[0],
+            encode_bound_by=bfe_bound[1]),
     ]
     for r in kernels:
-        r["lorenzo_reg_launches"] = lr_launches[r["name"]]
+        r["lorenzo_reg_launches"] = lr_launches.get(r["name"], 0)
+        r["phase6_launches"] = p6_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,9 @@
-"""INTERP encode with the entropy stage on the device (counterpart of
-``encode_payload_device`` in sz3_tpu/algos/device_encode.py).
+"""Encodes with the entropy stage or the prediction on the device
+(counterpart of sz3_tpu/algos/device_encode.py): INTERP, LORENZO_REG and
+NOPRED through the device Huffman encode, BIOMD and BIOMDXTC with their
+decomposition on the device and their coders in the host engine.
+
+INTERP (``encode_payload_device``):
 
   device: predict+quantize passes (ops/interp_fast) -> bins grid -> stream
           order through the cached permutation (ops/stream_order) ->
@@ -22,16 +26,19 @@ first point's bin goes into the bins grid when there are no anchors.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import runtime
 from ..config import Config
+from ..ops import biomd_device as bd
 from ..ops import entropy_device as ed
 from ..ops import stream_order
+from ..ops import xtc_device as xtc
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
+from ..ops.quantize import quantize
 from .huffman import build_table
 
 
@@ -143,3 +150,89 @@ def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
     unpred = stream_order.literal_values(g, perm, slots).cpu().numpy()
     return runtime.blockwise_seal_packed(conf, tree, bits_bytes, total_bits, num, sel, regb,
                                          qlu, qiu, unpred, cap)
+
+
+def encode_payload_device_nopred(conf: Config, x: torch.Tensor, cap: int) -> bytes:
+    """NOPRED payload of the float field `x` (float32 or float64, on the
+    device that runs the encode) with the quantizer and the entropy stage on
+    that device (counterpart of ``encode_payload_device_nopred`` in
+    sz3_tpu/algos/device_encode.py; reference SZAlgoNopred.hpp:13-36).
+
+      device: quantize against a zero prediction; the stream is the flat
+              bins in element order, so no permutation; K1, then K2+K3
+              after the host's tree, as in encode_payload_device
+      host:   payload framing + zstd (runtime.nopred_seal_packed)"""
+    radius = conf.quantbinCnt // 2
+    flat = x.reshape(-1)
+    num = flat.numel()
+    bins, _ = quantize(flat, torch.zeros_like(flat), conf.absErrorBound, radius)
+    hist, slots = ed.hist_and_literals(bins, radius)
+    tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, x.device)
+    words = ed.pack_bits(bins, tc, tl, radius, total_bits)
+    bits_bytes = _stream_bytes(words, total_bits)
+    unpred = flat.index_select(0, slots).cpu().numpy()
+    return runtime.nopred_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)
+
+
+def biomd_on_device(conf: Config, data: np.ndarray) -> Optional[Tuple[int, int, float]]:
+    """(site, first fill frame, fill value) when the device runs this BIOMD
+    encode, else None (the host engine's route): float32 3D trajectories
+    with a molecular period (site != 0) and at least 2 live frames, as the
+    JAX package routes them. Host numpy over at most 100 x 5 values of
+    frame 1 and one scan back over the trailing frames."""
+    if data.dtype != np.float32 or len(conf.dims) != 3 or conf.dims[0] < 2:
+        return None
+    data = data.reshape(conf.dims)
+    site = bd.cal_site(data[1])
+    if site == 0:
+        return None
+    first_fill, fill = bd.find_fill(data)
+    if min(conf.dims[0], first_fill) < 2:
+        return None
+    return site, first_fill, fill
+
+
+def encode_payload_device_biomd(conf: Config, x: torch.Tensor, cap: int, site: int,
+                                first_fill: int, fill: float) -> bytes:
+    """ALGO_BIOMD payload of the float32 trajectory `x` (on the device that
+    runs the encode, shaped conf.dims), with frames 1..last on that device
+    (counterpart of ``encode_payload_device_biomd`` in
+    sz3_tpu/algos/device_encode.py). `site`, `first_fill` and `fill` come
+    from biomd_on_device.
+
+      host:   frame 0's atom chain (runtime.biomd_frame0), uploaded once
+      device: frames 1..last (ops/biomd_device.frames_encode); the literals,
+              the originals at the zero bins in frame-major order
+      host:   the bins and literals read back, HuffmanV2 + zstd
+              (runtime.biomd_seal)"""
+    frames, atoms, cols = conf.dims
+    last = min(frames, first_fill)
+    eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
+    bins0, recon0, unpred0 = runtime.biomd_frame0(eb, radius, site, x[0].cpu().numpy())
+    live = x[1:last]
+    bins_rest = bd.frames_encode(live, torch.from_numpy(recon0).to(x.device), eb, radius, site)
+    lits = torch.masked_select(live, bins_rest == 0)
+    bins = np.zeros(conf.num, np.int32)
+    acols = atoms * cols
+    bins[:acols] = bins0.reshape(-1)
+    bins[acols:last * acols] = bins_rest.reshape(-1).cpu().numpy()
+    unpred = np.concatenate([unpred0, lits.cpu().numpy()])
+    return runtime.biomd_seal(conf, bins, unpred, site, first_fill, fill, cap)
+
+
+def encode_payload_device_biomdxtc(conf: Config, x: torch.Tensor, cap: int,
+                                   first_fill: int, fill: float) -> bytes:
+    """ALGO_BIOMDXTC payload of the float32 field `x` (1D-3D, on the device
+    that runs the encode, shaped conf.dims): one elementwise quantize at the
+    XTC radius on that device (ops/xtc_device.py), the XTC triplet coder in
+    the host engine (runtime.biomdxtc_seal). For 3D data the frames from
+    `first_fill` on (trailing frames of one fill value, found on the host)
+    are left out, as the engine does; 1D and 2D data pass 0 and 0.0."""
+    if len(conf.dims) == 3:
+        live = x[:min(conf.dims[0], first_fill)].reshape(-1)
+    else:
+        live = x.reshape(-1)
+    stored = xtc.xtc_quantize(live, conf.absErrorBound)
+    unpred = torch.masked_select(live, stored == -xtc.XTC_RADIUS)
+    return runtime.biomdxtc_seal(conf, stored.cpu().numpy(), unpred.cpu().numpy(), first_fill,
+                                 np.float32(fill), cap)

@@ -1,52 +1,55 @@
 """PyTorch execution backend (counterpart of sz3_tpu/algos/jax_backend.py).
 
 The device runs the prediction+quantization of INTERP (the multi-level
-passes) and of LORENZO_REG (fits, selection and the element sweep), the
-Huffman histogram and bit packing of the encode (algos/device_encode.py) and
-the Huffman decode (algos/device_decode.py). The package's host engine
+passes), of LORENZO_REG (fits, selection and the element sweep), of NOPRED
+(one quantize against zero), of BIOMD (frames after the first, the frame
+recurrence) and of BIOMDXTC (one quantize at the XTC radius), the Huffman
+histogram and bit packing of the encode (algos/device_encode.py) and the
+Huffman decode (algos/device_decode.py). The package's host engine
 (runtime.py) tunes, builds the Huffman tree, replays LORENZO_REG's
-coefficient chain, and does the framing and zstd. Archives are
-byte-identical to the host engine's.
+coefficient chain, runs BIOMD's first frame and its HuffmanV2 coder and the
+XTC triplet coder, and does the framing and zstd. Archives are
+byte-identical to the host engine's. OpenMP-format archives (conf.openmp)
+go chunk by chunk through this dispatcher (parallel/chunked.py).
 
 Dispatcher semantics follow the host path (reference SZDispatcher.hpp:13-76):
 eb-mode conversion, lossless mode for eb == 0, the buffer-too-small
-downgrade, and the lossy-ratio < 3 zstd preference.
+downgrade, and the lossy-ratio < 3 zstd preference (not for BIOMD and
+BIOMDXTC, which return directly).
 
-LORENZO_REG runs on the device for 3D float32 fields with blockSize 6, and
-for the encode a roster without second-order Lorenzo. Every other
-LORENZO_REG configuration goes to the host engine, as the JAX package sends
-it (jax_backend.py:337-350, :376-384): 1D fields (the INTERP_LORENZO tuner
-picks Lorenzo only there, and a 1D sweep is one chain of dependent cells
-with no parallel width), 2D and 4D fields, float64 and integer data,
-second-order Lorenzo encode rosters and other block sizes. The route is
-decided from the Config and the dtype before any device work; nothing is
-handed to the host engine after a device attempt. Algorithms this port does
-not run yet raise NotImplementedError naming their ROADMAP item.
+Routes to the host engine are decided from the Config, the dtype and
+host-side checks of the input before any device work; nothing is handed to
+the host engine after a device attempt. They are the ones the JAX package
+takes (jax_backend.py:337-384):
+  - integer dtypes, for every algorithm;
+  - LORENZO_REG other than 3D float32 with blockSize 6, and second-order
+    Lorenzo encode rosters (1D fields: the INTERP_LORENZO tuner picks
+    Lorenzo only there, and a 1D sweep is one chain of dependent cells);
+  - BIOMD other than 3D float32, and trajectories with no molecular period
+    (site == 0: every frame is a chain down the atoms) or fewer than 2 live
+    frames; the decode decides from the opened payload's site and fill frame;
+  - BIOMDXTC other than float32 of 1 to 3 dimensions.
+The host engine's BIOMD and BIOMDXTC bindings are float32 only. NOPRED
+float64 runs on the device: the JAX package's float32 gate there exists only
+because the TPU has no IEEE float64.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import runtime
 from ..config import ALGO, Config
+from ..ops import biomd_device as bd
+from ..parallel import chunked
 from ..stats import cal_abs_error_bound
 from . import device_decode, device_encode
 
-_TODO = {
-    ALGO.NOPRED: "NOPRED is ROADMAP Queue 1 item 10",
-    ALGO.BIOMD: "BIOMD is ROADMAP Queue 1 item 13",
-    ALGO.BIOMDXTC: "BIOMDXTC is ROADMAP Queue 1 item 13",
-}
-
-
-def _unsupported(conf: Config) -> NotImplementedError:
-    if conf.openmp:
-        return NotImplementedError(
-            "chunked (openmp) archives are ROADMAP Queue 1 item 15 (multi-device)")
-    why = _TODO.get(conf.cmprAlgo, f"{conf.cmprAlgo.name} has no ROADMAP item yet")
-    return NotImplementedError(f"sz3_tpu_torch does not run {conf.cmprAlgo.name}: {why}")
+_FLOATS = (np.float32, np.float64)
 
 
 def _resolve_anchor_stride(conf: Config) -> None:
@@ -54,22 +57,6 @@ def _resolve_anchor_stride(conf: Config) -> None:
     # configs hold -1 and the value is derived exactly as on the encode side
     if conf.interpAnchorStride < 0:
         conf.interpAnchorStride = [4096, 128, 32, 16][conf.N - 1]
-
-
-def _interp_encode_payload(conf: Config, data: np.ndarray, cap: int,
-                           device: torch.device) -> bytes:
-    _resolve_anchor_stride(conf)
-    # conf.dims drops size-1 axes (reference setDims); the plan, the stream
-    # permutation and the archive all use that shape
-    data = np.ascontiguousarray(data).reshape(conf.dims)
-    x = torch.from_numpy(data).to(device)
-    return device_encode.encode_payload_device(conf, x, cap)
-
-
-def _interp_decode_payload(conf: Config, payload: bytes, dtype,
-                           device: torch.device) -> torch.Tensor:
-    _resolve_anchor_stride(conf)
-    return device_decode.decode_payload_device(conf, payload, dtype, device)
 
 
 def _blockwise_on_device(conf: Config, dtype, encode: bool) -> bool:
@@ -81,20 +68,50 @@ def _blockwise_on_device(conf: Config, dtype, encode: bool) -> bool:
     return conf.lorenzo or conf.lorenzo2 or conf.regression
 
 
-def _device_encode_payload(conf: Config, data: np.ndarray, cap: int,
-                           device: torch.device) -> bytes:
-    if conf.cmprAlgo == ALGO.LORENZO_REG:
-        x = torch.from_numpy(np.ascontiguousarray(data).reshape(conf.dims)).to(device)
+def _encode_route(conf: Config, data: np.ndarray) -> Optional[tuple]:
+    """None where the host engine runs this encode; else the host-side facts
+    the device route needs (BIOMD: site, first fill frame, fill value;
+    BIOMDXTC: first fill frame, fill value; others: nothing)."""
+    algo, dt = conf.cmprAlgo, data.dtype
+    if algo == ALGO.LORENZO_REG:
+        return () if _blockwise_on_device(conf, dt, encode=True) else None
+    if algo in (ALGO.INTERP, ALGO.NOPRED):
+        return () if dt in _FLOATS else None
+    if algo == ALGO.BIOMD:
+        return device_encode.biomd_on_device(conf, data)
+    if algo == ALGO.BIOMDXTC:
+        if dt != np.float32 or len(conf.dims) > 3:
+            return None
+        return bd.find_fill(data.reshape(conf.dims)) if len(conf.dims) == 3 else (0, 0.0)
+    raise ValueError(f"unknown compression algorithm {algo!r}")
+
+
+def _device_encode_payload(conf: Config, data: np.ndarray, cap: int, device: torch.device,
+                           route: tuple) -> bytes:
+    # conf.dims drops size-1 axes (reference setDims); the plan, the stream
+    # order and the archive all use that shape
+    x = torch.from_numpy(np.ascontiguousarray(data).reshape(conf.dims)).to(device)
+    algo = conf.cmprAlgo
+    if algo == ALGO.LORENZO_REG:
         return device_encode.encode_payload_device_blockwise(conf, x, cap)
-    return _interp_encode_payload(conf, data, cap, device)
+    if algo == ALGO.NOPRED:
+        return device_encode.encode_payload_device_nopred(conf, x, cap)
+    if algo == ALGO.BIOMD:
+        return device_encode.encode_payload_device_biomd(conf, x, cap, *route)
+    if algo == ALGO.BIOMDXTC:
+        return device_encode.encode_payload_device_biomdxtc(conf, x, cap, *route)
+    _resolve_anchor_stride(conf)
+    return device_encode.encode_payload_device(conf, x, cap)
 
 
-def compress_payload_torch(conf: Config, data: np.ndarray, cap: int,
-                           device: torch.device) -> bytes:
+def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: torch.device,
+                           nthreads: int = 0) -> bytes:
     """Torch-path equivalent of the native dispatcher; mutates `conf` as the
-    reference does."""
+    reference does. `nthreads` is the chunk count of an OpenMP-format
+    archive (0: the machine's CPU count, at most data.shape[0])."""
     if conf.openmp:
-        raise _unsupported(conf)
+        n = nthreads or min(os.cpu_count() or 1, data.shape[0])
+        return chunked.compress_chunked(conf, data, n, device)
     cal_abs_error_bound(conf, data)
     if conf.absErrorBound == 0:
         conf.cmprAlgo = ALGO.LOSSLESS
@@ -102,22 +119,18 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int,
         runtime.tune_interp(conf, data)
     if conf.cmprAlgo == ALGO.LOSSLESS:
         return runtime.zstd_compress(data.tobytes())
-    if conf.cmprAlgo == ALGO.LORENZO_REG:
-        if not _blockwise_on_device(conf, data.dtype, encode=True):
-            return runtime.compress_payload(conf, data, cap)
-    elif conf.cmprAlgo != ALGO.INTERP:
-        raise _unsupported(conf)
-    elif data.dtype not in (np.float32, np.float64):
-        # integer dtypes ride the host engine end to end, as in the JAX
-        # package (the interp passes and the packed seal are float-only)
+    route = _encode_route(conf, data)
+    if route is None:
         return runtime.compress_payload(conf, data, cap)
     try:
-        payload = _device_encode_payload(conf, data, cap, device)
+        payload = _device_encode_payload(conf, data, cap, device, route)
     except RuntimeError as e:
         if "buffer too small" not in str(e):
             raise
         conf.cmprAlgo = ALGO.LOSSLESS
         return runtime.zstd_compress(data.tobytes())
+    if conf.cmprAlgo in (ALGO.BIOMD, ALGO.BIOMDXTC):
+        return payload      # no ratio fallback (SZDispatcher.hpp:36-39)
     # lossy ratio < 3 -> prefer plain zstd when smaller (SZDispatcher.hpp:61-74)
     if data.nbytes / len(payload) < 3:
         z = runtime.zstd_compress(data.tobytes())
@@ -132,19 +145,28 @@ def decompress_payload_torch(conf: Config, payload: bytes, dtype,
     """Payload -> tensor on `device`, shaped conf.dims. `dtype` is a
     DataType overriding the archive's, or None."""
     dt = runtime.np_dtype_of(dtype if dtype is not None else conf.dataType)
+    algo = conf.cmprAlgo
     if conf.openmp:
-        raise _unsupported(conf)
-    if conf.cmprAlgo == ALGO.LOSSLESS:
+        return chunked.decompress_chunked(conf, payload, dt, device)
+    if algo == ALGO.LOSSLESS:
         raw = runtime.zstd_decompress(payload)
         out = np.frombuffer(raw, dtype=dt).reshape(conf.dims).copy()
         return torch.from_numpy(out).to(device)
-    if conf.cmprAlgo == ALGO.LORENZO_REG:
-        if _blockwise_on_device(conf, dt, encode=False):
-            return device_decode.decode_payload_device_blockwise(conf, payload, device)
-    elif conf.cmprAlgo != ALGO.INTERP:
-        raise _unsupported(conf)
-    elif dt in (np.float32, np.float64):
-        return _interp_decode_payload(conf, payload, dt, device).reshape(conf.dims)
+    if algo == ALGO.LORENZO_REG and _blockwise_on_device(conf, dt, encode=False):
+        return device_decode.decode_payload_device_blockwise(conf, payload, device)
+    if algo == ALGO.INTERP and dt in _FLOATS:
+        _resolve_anchor_stride(conf)
+        return device_decode.decode_payload_device(conf, payload, dt, device).reshape(conf.dims)
+    if algo == ALGO.NOPRED and dt in _FLOATS:
+        return device_decode.decode_payload_device_nopred(conf, payload, dt,
+                                                          device).reshape(conf.dims)
+    if algo == ALGO.BIOMD and dt == np.float32 and len(conf.dims) == 3:
+        opened = runtime.biomd_open(conf, payload)
+        _, _, site, first_fill, _ = opened
+        if site != 0 and min(conf.dims[0], first_fill) >= 2:
+            return device_decode.decode_payload_device_biomd(conf, opened, device)
+    if algo == ALGO.BIOMDXTC and dt == np.float32 and len(conf.dims) <= 3:
+        return device_decode.decode_payload_device_biomdxtc(conf, payload, device)
     out = runtime.decompress_payload(conf, payload,
                                      dtype=runtime.np_dtype_id(np.empty(0, dtype=dt)))
     return torch.from_numpy(np.ascontiguousarray(out)).to(device).reshape(conf.dims)

@@ -89,19 +89,22 @@ def open_archive(blob: bytes) -> Tuple[Config, bytes]:
 
 
 def compress(data: Union[np.ndarray, torch.Tensor], conf: Optional[Config] = None, *,
-             device="cuda", set_datatype: bool = True) -> bytes:
+             device="cuda", nthreads: int = 0, set_datatype: bool = True) -> bytes:
     """Compress an array into an SZ3 archive on `device`.
 
     `conf` carries algorithm and error-bound settings; dims and dtype come
-    from `data`. set_datatype=False leaves conf.dataType untouched in the
-    archive tail, as the reference CLI does.
+    from `data`. With conf.openmp the archive is in the reference's OpenMP
+    format, cut into `nthreads` chunks along the first axis (0: the
+    machine's CPU count), which run one after the other on `device`.
+    set_datatype=False leaves conf.dataType untouched in the archive tail,
+    as the reference CLI does.
     """
     dev = _device(device)
     arr = data.detach().cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
     if arr.ndim > 4:
         raise ValueError("data dimension higher than 4 is not supported")
     c, cap = archive_conf(arr, conf, set_datatype)
-    return pack_archive(c, compress_payload_torch(c, arr, cap, dev))
+    return pack_archive(c, compress_payload_torch(c, arr, cap, dev, nthreads))
 
 
 def decompress(blob: bytes, *, device="cuda", dtype=None) -> Tuple[torch.Tensor, Config]:

@@ -114,10 +114,11 @@ def element_masks(geo: Geometry, device) -> torch.Tensor:
     return to_blocks(valid_cells(geo, device), geo)
 
 
-# One entry: a simulation writes the same shape every step, and an entry is
-# large (537 MB on the device at 512^3).
+# Two entries: a simulation writes the same shape every step, and the chunks
+# of an OpenMP-format archive come in at most two shapes; an entry is large
+# (537 MB on the device at 512^3).
 
-@lru_cache(maxsize=1)
+@lru_cache(maxsize=2)
 def device_perm(dims, device: torch.device) -> torch.Tensor:
     """The block-major stream order of a field of `dims` as int32 on
     `device`: perm[slot] = flat index of the rounded grid."""

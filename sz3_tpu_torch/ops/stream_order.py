@@ -33,10 +33,12 @@ def _order(dims, interp_algo: int, direction: int, anchor_stride: int) -> np.nda
     return runtime.interp_order(c)
 
 
-# One entry: a simulation writes the same shape every step, and an entry is
-# large (512 MiB on the device at 512^3). Encode and decode share it.
+# Two entries: a simulation writes the same shape every step, and the chunks
+# of an OpenMP-format archive come in at most two shapes (ragged heights
+# differ by one); an entry is large (512 MiB on the device at 512^3). Encode
+# and decode share them.
 
-@lru_cache(maxsize=1)
+@lru_cache(maxsize=2)
 def device_perm(dims, interp_algo: int, direction: int, anchor_stride: int,
                 device: torch.device) -> torch.Tensor:
     """The permutation as int32 on `device`, uploaded once per configuration."""

@@ -255,15 +255,28 @@ def test_nonfinite_and_subnormal_values():
 
 @pytest.mark.parametrize("algo", [ALGO.NOPRED, ALGO.BIOMDXTC, ALGO.BIOMD])
 def test_other_algorithms_raise(algo):
+    """NOPRED, BIOMDXTC and BIOMD, which raised NotImplementedError before
+    the port ran them, now round-trip: archives byte-equal to the engine's,
+    decodes bit-equal (tests/test_torch_nopred.py, test_torch_xtc.py and
+    test_torch_biomd.py hold each route in detail)."""
     x = _field((24, 24, 3), seed=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        szp.compress(x, P.Config(dims=x.shape, cmprAlgo=algo, absErrorBound=1e-3), device="cpu")
+    blob = _three_way(x, lambda ns: ns.Config(dims=x.shape, cmprAlgo=ns.ALGO(int(algo)),
+                                              absErrorBound=1e-3), jax=False)
+    assert szp.open_archive(blob)[0].cmprAlgo in (algo, ALGO.LOSSLESS)
+    assert np.abs(_same_decode(blob).astype(np.float64) - x).max() <= 1e-3 * 1.2
 
 
 def test_openmp_raises():
+    """An OpenMP-format archive (Config.openmp), which raised before the port
+    ran it, now round-trips: byte-equal to the engine's at the same chunk
+    count, given and by default (tests/test_torch_chunked.py holds the route
+    in detail)."""
     x = _field((32, 24, 24), seed=13)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        szp.compress(x, P.Config(dims=x.shape, absErrorBound=1e-3, openmp=True), device="cpu")
+    for nthreads in (4, 0):
+        blob = _three_way(x, lambda ns: ns.Config(dims=x.shape, absErrorBound=1e-3, openmp=True),
+                          jax=False, nthreads=nthreads)
+        assert szp.open_archive(blob)[0].openmp
+        assert np.abs(_same_decode(blob) - x).max() <= 1e-3
 
 
 def test_tensor_input():
@@ -274,24 +287,17 @@ def test_tensor_input():
 
 
 _MANIFEST = json.loads((GOLDEN / "manifest.json").read_text())
-_GOLDEN = [c for c in _MANIFEST if c["dtype"] in ("float32", "float64") and not c["env"]]
+_GOLDEN = [c for c in _MANIFEST if c["dtype"] in ("float32", "float64")]
 
 
 @pytest.mark.parametrize("case", _GOLDEN, ids=[c["name"] for c in _GOLDEN])
 def test_golden_corpus(case):
-    """Golden reference archives of the port's algorithms (INTERP, LOSSLESS,
-    LORENZO_REG) decode to their recorded hash; the others (NOPRED, BIOMD,
-    BIOMDXTC) raise NotImplementedError."""
+    """Every float golden reference archive (27: every algorithm, the two
+    OpenMP-format ones among them) decodes to its recorded hash, bit-equal
+    to the host engine's decode."""
     ref = (GOLDEN / f"{case['name']}.sz").read_bytes()
-    try:
-        out, conf = szp.decompress(ref, device="cpu", dtype=np.dtype(case["dtype"]))
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        _, conf = szt.decompress(ref, dtype=np.dtype(case["dtype"]))
-        assert int(conf.cmprAlgo) in (ALGO.NOPRED, ALGO.BIOMD, ALGO.BIOMDXTC)
-        return
-    assert conf.cmprAlgo in (ALGO.INTERP, ALGO.LOSSLESS, ALGO.LORENZO_REG)
-    assert hashlib.sha256(out.numpy().tobytes()).hexdigest() == case["out_sha"]
+    out = _same_decode(ref, dtype=np.dtype(case["dtype"]))
+    assert hashlib.sha256(out.tobytes()).hexdigest() == case["out_sha"]
 
 
 def test_device_defaults_to_the_card():

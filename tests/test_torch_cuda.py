@@ -430,3 +430,110 @@ def test_lorenzo_reg_archives_on_the_card(dev, roster, shape):
     assert out.device.type == "cuda"
     ref = runtime.decompress_payload(*szp.open_archive(blob))
     assert out.cpu().numpy().tobytes() == ref.tobytes()
+
+
+# ---- BIOMD: the frame recurrence ------------------------------------------------------
+
+def _frames_case(frames, atoms, site, seed):
+    """A molecule-like trajectory of `site`-atom molecules with NaN, Inf,
+    subnormal and huge values, its frame-0 reconstruction from the host
+    engine, and bins and literals across the quantizer's range."""
+    from sz3_tpu_torch import runtime
+
+    rng = np.random.default_rng(seed)
+    g = -(-atoms // site)
+    base = np.repeat(rng.uniform(-5, 5, (g, 1, 3)), site, axis=1).reshape(-1, 3)[:atoms]
+    traj = (base[None] + np.cumsum(rng.normal(0, 0.01, (frames, atoms, 3)), axis=0))
+    traj = traj.astype(np.float32)
+    flat = traj[1:].reshape(-1)
+    flat[::97] = np.nan
+    flat[5::131] = np.inf
+    flat[7::137] = -np.inf
+    flat[11::139] = np.float32(3e-39)
+    flat[13::149] = np.float32(2.0 ** 40)
+    _, recon0, _ = runtime.biomd_frame0(1e-3, RADIUS, site, traj[0])
+    bins = rng.integers(1, 2 * RADIUS, (frames - 1, atoms, 3)).astype(np.int32)
+    bins[rng.random(bins.shape) < 0.05] = 0
+    return traj[1:], recon0, bins
+
+
+@pytest.mark.parametrize("atoms,site", [(1, 3), (2, 3), (3, 3), (7, 3), (332, 4), (1001, 10),
+                                        (64, 5), (9999, 3)])
+@pytest.mark.parametrize("eb", [1e-3, 1e-1])
+def test_biomd_frames_matches_plain(dev, atoms, site, eb):
+    """Both forms of the kernel equal their plain versions bit for bit:
+    atoms not a multiple of site (padded lanes, a last molecule of one or
+    two atoms), every site from 3 to 10, special values; one launch a
+    call, which the plain versions do not count."""
+    from sz3_tpu_torch.ops import biomd_device as tbd
+
+    x, recon0, bins = _frames_case(9, atoms, site, atoms + site)
+    x, recon0, bins = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (x, recon0, bins))
+    before = tbd.biomd_frames.launches
+    bk = tbd.frames_encode(x, recon0, eb, RADIUS, site)
+    assert tbd.biomd_frames.launches == before + 1
+    bp = tbd.frames_encode_plain(x, recon0, eb, RADIUS, site)
+    assert torch.equal(bk, bp)
+    for b in (bk, bins):
+        lits = torch.where(b == 0, x, 0.0)
+        rk = tbd.frames_recover(b, lits, recon0, eb, RADIUS, site)
+        rp = tbd.frames_recover_plain(b, lits, recon0, eb, RADIUS, site)
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert tbd.biomd_frames.launches == before + 3
+    tbd.frames_encode(x.cpu(), recon0.cpu(), eb, RADIUS, site)
+    assert tbd.biomd_frames.launches == before + 3
+
+
+@pytest.mark.parametrize("algo,kw", [("BIOMD", dict()), ("BIOMD", dict(fill_tail=8, frames=32)),
+                                     ("BIOMD", dict(site_atoms=4, atoms=332)),
+                                     ("BIOMDXTC", dict()), ("BIOMDXTC", dict(fill_tail=6))])
+def test_biomd_archives_on_the_card(dev, algo, kw):
+    """BIOMD and BIOMDXTC archives written on the card equal the host
+    engine's and decode on the card bit-equal to its decode; BIOMD launches
+    the recurrence once each way."""
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import biomd_device as tbd
+
+    rng = np.random.default_rng(0)
+    atoms, site, frames = kw.get("atoms", 333), kw.get("site_atoms", 3), kw.get("frames", 24)
+    g = atoms // site + 1
+    base = rng.uniform(-5, 5, (g, 1, 3)).repeat(site, axis=1)
+    base = (base + rng.normal(0, 0.05, (g, site, 3))).reshape(-1, 3)[:atoms]
+    x = (base[None] + np.cumsum(rng.normal(0, 0.01, (frames, atoms, 3)), axis=0))
+    x = x.astype(np.float32)
+    if kw.get("fill_tail"):
+        x[-kw["fill_tail"]:] = -1.0
+    conf = Config(cmprAlgo=getattr(ALGO, algo), absErrorBound=1e-3)
+    c, cap = archive_conf(x, conf)
+    want = szp.pack_archive(c, runtime.compress_payload(c, x, cap))
+    before = tbd.biomd_frames.launches
+    assert szp.compress(x, conf, device=dev) == want
+    out, _ = szp.decompress(want, device=dev)
+    assert out.device.type == "cuda"
+    assert tbd.biomd_frames.launches == before + (2 if algo == "BIOMD" else 0)
+    ref = runtime.decompress_payload(*szp.open_archive(want))
+    assert out.cpu().numpy().tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_nopred_and_chunked_archives_on_the_card(dev, dtype):
+    """NOPRED (symbols past K1's shared window among them) and an
+    OpenMP-format archive, written and read on the card, equal the host
+    engine's."""
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.api import archive_conf
+
+    rng = np.random.default_rng(2)
+    x = np.exp(rng.uniform(-1.75, 1.75, (40, 50, 60))).astype(dtype)
+    for conf, n in ((Config(cmprAlgo=ALGO.NOPRED, absErrorBound=1e-3), 0),
+                    (Config(absErrorBound=1e-3, openmp=True), 6)):
+        c, cap = archive_conf(x, conf)
+        want = szp.pack_archive(c, runtime.compress_payload(c, x, cap, nthreads=n))
+        before = ted.hist_and_literals.launches
+        assert szp.compress(x, conf, device=dev, nthreads=n) == want
+        assert ted.hist_and_literals.launches > before
+        out, _ = szp.decompress(want, device=dev)
+        ref = runtime.decompress_payload(*szp.open_archive(want))
+        assert out.device.type == "cuda" and out.cpu().numpy().tobytes() == ref.tobytes()

@@ -36,6 +36,18 @@ blob_lr = szp.compress(x, szp.Config(cmprAlgo=szp.ALGO.LORENZO_REG, absErrorBoun
 out_lr, conf_lr = szp.decompress(blob_lr, device="cpu")
 assert conf_lr.cmprAlgo == szp.ALGO.LORENZO_REG
 assert float(np.abs(out_lr.numpy() - x).max()) <= 1e-3
+for algo, omp in ((szp.ALGO.NOPRED, False), (szp.ALGO.INTERP_LORENZO, True)):
+    b = szp.compress(x, szp.Config(cmprAlgo=algo, absErrorBound=1e-3, openmp=omp),
+                     device="cpu", nthreads=3)
+    o, c = szp.decompress(b, device="cpu")
+    assert c.openmp == omp and float(np.abs(o.numpy() - x).max()) <= 1e-3
+g = 40
+traj = np.repeat(rng.uniform(-5, 5, (g, 1, 3)), 3, axis=1).reshape(-1, 3)
+traj = (traj[None] + np.cumsum(rng.normal(0, 0.01, (12, 3 * g, 3)), axis=0)).astype(np.float32)
+for algo in (szp.ALGO.BIOMD, szp.ALGO.BIOMDXTC):
+    b = szp.compress(traj, szp.Config(cmprAlgo=algo, absErrorBound=1e-3), device="cpu")
+    o, c = szp.decompress(b, device="cpu")
+    assert c.cmprAlgo == algo and float(np.abs(o.numpy() - traj).max()) <= 1.2e-3
 assert sys.modules["jax"] is None and sys.modules["sz3_tpu"] is None
 assert not [m for m in sys.modules if m.startswith("sz3_tpu.")]
 print("ok", len(blob))
