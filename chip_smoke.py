@@ -52,14 +52,18 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
   6. the other archive forms, each against the host engine as in phase 5
      (archives sha256-equal, decodes bit-equal, launches counted over the
      calls alone, walls cold and warm, stages with their device memory
-     peaks): NOPRED on nyx_like(512) f32 and nyx_like(256) f64, with K1's
-     window shares on its element-order stream; OpenMP-format archives of
-     the default Config on nyx_like(512) in 8 chunks at ABS 1e-3 and REL
-     1e-3 and in 6 (ragged), each decoded across (the port's archive by the
-     engine, the engine's on the card); BIOMD and BIOMDXTC on a water-like
-     trajectory of 500 frames of the ApoA1 system's 92,224 atoms (553 MB),
-     and on one with 100 trailing fill frames; biomd_frames against its
-     plain versions at that shape, timed; the golden NOPRED, OpenMP, BIOMD
+     peaks, the card's memory over the peak): NOPRED on nyx_like(512) f32
+     and nyx_like(256) f64, with K1's window shares on its element-order
+     stream; OpenMP-format archives of the default Config on nyx_like(512)
+     in 8 chunks at ABS 1e-3 and REL 1e-3 and in 6 (ragged), each decoded
+     across (the port's archive by the engine, the engine's on the card).
+     K1, K2+K3, the count and the write phase are held against their plain
+     versions, bit for bit, on both NOPRED streams and on the last chunk's
+     stream of the 8-chunk ABS archive, each the stream that the main path
+     encoded and decoded (captured from the device encode and decode);
+     BIOMD and BIOMDXTC on a water-like trajectory of 500 frames of the
+     ApoA1 system's 92,224 atoms (553 MB), and on one with 100 trailing fill
+     frames; biomd_frames against its plain versions at that shape, timed; the golden NOPRED, OpenMP, BIOMD
      and BIOMDXTC archives decoded on the card.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
@@ -418,21 +422,40 @@ def main() -> int:
                "all zero": torch.zeros(syn_n, dtype=torch.int32, device=dev),
                "all outside the shared window": torch.from_numpy(far_out.astype(np.int32)).to(dev)}
 
-    k1_err = 0
-    for name, s in (("256^3 stream", stream), *syn_streams.items(), *k1_only.items()):
-        hk, sk = ed.hist_and_literals(s, radius)
-        hp, sp = ed.hist_and_literals_plain(s, radius)
+    def hold_k1(name, s, rad):
+        """K1 against its plain version on the stream s, bit for bit: (max
+        abs diff, the histogram on the host)."""
+        hk, sk = ed.hist_and_literals(s, rad)
+        hp, sp = ed.hist_and_literals_plain(s, rad)
         torch.cuda.synchronize()
         hp = hp.cpu()
         err = max(max_abs_diff(hk, hp), max_abs_diff(sk, sp))
         check(err == 0 and torch.equal(hk, hp) and torch.equal(sk, sp),
               f"K1 {name}: differs from its plain version (max abs diff {err})")
+        print(f"K1 {name}: bit-equal to plain (n={s.numel()}, literals={sk.numel()}, "
+              f"outside the shared window={outside_k1_window(hk, rad)})", flush=True)
+        return err, hk
+
+    def hold_pack(name, s, tc, tl, rad, nbits):
+        """K2+K3 against its plain version on the stream s under the code
+        tables tc, tl, bit for bit: (max abs diff, the packed words)."""
+        wk = ed.pack_bits(s, tc, tl, rad, nbits)
+        wp = ed.pack_bits_plain(s, tc, tl, rad, nbits)
+        torch.cuda.synchronize()
+        err = max_abs_diff(wk, wp)
+        check(err == 0 and torch.equal(wk, wp),
+              f"K2+K3 {name}: differs from its plain version (max abs diff {err})")
+        print(f"K2+K3 {name}: bit-equal to plain ({nbits} bits, {wk.numel()} words, "
+              f"longest code {int(tl.max())} bits)", flush=True)
+        return err, wk
+
+    k1_err = 0
+    for name, s in (("256^3 stream", stream), *syn_streams.items(), *k1_only.items()):
+        err, hk = hold_k1(name, s, radius)
         k1_err = max(k1_err, err)
         outside = outside_k1_window(hk, radius)
         check(name != "all outside the shared window" or outside == syn_n,
               f"K1 {name}: {outside} of {syn_n} symbols outside the shared window")
-        print(f"K1 {name}: bit-equal to plain (n={s.numel()}, literals={sk.numel()}, "
-              f"outside the shared window={outside})", flush=True)
     del k1_only
     print("share of the 256^3 symbols within +-64/512/2048/8190 of radius: "
           + " / ".join(f"{v:.5f} %" for v in window_shares(stream, radius))
@@ -454,15 +477,7 @@ def main() -> int:
         rand_s, b"", rand_bits, torch.from_numpy(rand_codes).to(dev), rand_tl)
     k2_err = 0
     for name, (s, _tree, nbits, tc, tl) in tables.items():
-        wk = ed.pack_bits(s, tc, tl, radius, nbits)
-        wp = ed.pack_bits_plain(s, tc, tl, radius, nbits)
-        torch.cuda.synchronize()
-        err = max_abs_diff(wk, wp)
-        check(err == 0 and torch.equal(wk, wp),
-              f"K2+K3 {name}: differs from its plain version (max abs diff {err})")
-        k2_err = max(k2_err, err)
-        print(f"K2+K3 {name}: bit-equal to plain ({nbits} bits, {wk.numel()} words, "
-              f"longest code {int(tl.max())} bits)", flush=True)
+        k2_err = max(k2_err, hold_pack(name, s, tc, tl, radius, nbits)[0])
     check(int(tables["synthetic, codes > 32 bits"][4].max()) > 33, "no code exceeds 33 bits")
 
     _, _, total_bits, tc, tl = tables["256^3 stream"]
@@ -580,14 +595,16 @@ def main() -> int:
         n64 = nout.to(torch.int64)
         return torch.cumsum(n64, 0) - n64, int(n64.sum())
 
-    k4_err = kw_err = 0
-    for name, (bits, codes, lens, lo, want_syms) in dec_cases.items():
+    def hold_decode(name, bits, codes, lens, lo, chained):
+        """The count phase (a first pass over the stream `bits`, and with
+        `chained` a chained rescan of its bad windows) and the write phase
+        (on the runs of both) against their plain versions, bit for bit:
+        (max abs diff of the count phase, of the write phase)."""
         total = len(bits) * 8
         tabs = dec.build_decode_tables(codes, lens, lo, dev)
         stream_t = dec.upload_bytes(bits, dev, dec.PAD_BYTES)
         nwin = -(-total // dec.W_BITS)
         wstart = torch.arange(nwin, device=dev) * dec.W_BITS
-        chained = name != "256^3 stream"
         states = []
         for scan in (dec.scan_windows, dec.scan_windows_plain):
             st = dec.ScanState(*(t.zero_() for t in dec.new_scan_state(nwin, dev)))
@@ -601,7 +618,7 @@ def main() -> int:
         err = max(max_abs_diff(a, b) for a, b in zip((*states[0][0], *states[0][1]),
                                                      (*states[1][0], *states[1][1])))
         check(err == 0, f"K4 {name}: differs from its plain version (max abs diff {err})")
-        k4_err = max(k4_err, err)
+        scan_err, write_err = err, 0
         # the write phase on the runs of the first pass (mis-speculated
         # windows and all: the function is defined by its arguments) and on
         # those the rescan leaves
@@ -613,7 +630,7 @@ def main() -> int:
             err = max_abs_diff(wk, wp)
             check(err == 0 and torch.equal(wk, wp),
                   f"huff_write {name}: differs from its plain version (max abs diff {err})")
-            kw_err = max(kw_err, err)
+            write_err = max(write_err, err)
         what = (f"a first pass and a chained rescan of its {states[0][2]} bad windows, which "
                 f"leaves {states[0][3]}" if chained
                 else f"a first pass, which leaves {states[0][2]} bad windows")
@@ -621,6 +638,12 @@ def main() -> int:
               f"write phase on both sets of runs ({nwin} windows, codes of "
               f"{int(lens[lens > 0].min())}-{int(lens.max())} bits, {tabs.sub_len.numel()} second-table "
               f"entries)", flush=True)
+        return scan_err, write_err
+
+    k4_err = kw_err = 0
+    for name, (bits, codes, lens, lo, want_syms) in dec_cases.items():
+        errs = hold_decode(name, bits, codes, lens, lo, chained=name != "256^3 stream")
+        k4_err, kw_err = max(k4_err, errs[0]), max(kw_err, errs[1])
         if want_syms is not None:
             stats = {}
             dense = dec.decode_stream(bits, len(want_syms), codes, lens, lo, dev, stats)
@@ -629,7 +652,6 @@ def main() -> int:
             print(f"  decode_stream == the {len(want_syms)} symbols in {stats['passes']} passes "
                   f"over {stats['redo_counts']} windows", flush=True)
             del dense
-        del states, st, wk, wp
         stamp(f"decode kernels, {name}")
     check(int(dec_cases["synthetic, codes up to 63 bits"][2].max()) == 63, "no 63-bit code")
     # symbols are whole int32 values, not fields of a table entry
@@ -1420,7 +1442,7 @@ def main() -> int:
             c.cmprAlgo = algo
         return c
 
-    nopred_enc_stages = [(de, "quantize", "quantize"), (ed, "hist_and_literals", "K1"),
+    nopred_enc_stages = [(de, "nopred_bins", "quantize"), (ed, "hist_and_literals", "K1"),
                          (de, "_tree_and_tables", "host tree"), (ed, "pack_bits", "K2+K3"),
                          (de, "_stream_bytes", "D2H stream"),
                          (runtime, "nopred_seal_packed", "host seal"),
@@ -1439,7 +1461,8 @@ def main() -> int:
     biomd_enc_stages = [(runtime, "biomd_frame0", "host frame 0"),
                         (bd, "frames_encode", "frames 1..last"),
                         (runtime, "biomd_seal", "host seal")]
-    biomd_dec_stages = [(runtime, "biomd_open", "host open"),
+    biomd_dec_stages = [(runtime, "biomd_header", "host header read"),
+                        (runtime, "biomd_open", "host open"),
                         (runtime, "biomd_frame0_open", "host frame 0"),
                         (bd, "frames_recover", "frames 1..last")]
     xtc_enc_stages = [(xtc, "xtc_quantize", "quantize"),
@@ -1516,15 +1539,19 @@ def main() -> int:
         print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
               f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; launches "
               f"per compress {enc_seen}, per decompress {dec_seen}", flush=True)
+        total = torch.cuda.get_device_properties(0).total_memory
         print(f"  peak device memory above what was held before the call: warm compress "
               f"{enc_peak / 2**30:.3f} GiB ({enc_peak / data.nbytes:.2f} bytes a field byte), "
-              f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f})",
-              flush=True)
+              f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f}); at "
+              f"that ratio the card's {total / 2**30:.1f} GiB, less the {held / 2**30:.3f} GiB "
+              f"held, fits a field of {(total - held) / (enc_peak / data.nbytes) / 1e9:.1f} GB "
+              f"to compress and {(total - held) / (dec_peak / data.nbytes) / 1e9:.1f} GB to "
+              f"decompress", flush=True)
         del out, out_np
         if enc_spec is None:
             torch.cuda.empty_cache()
             stamp(f"{label} done")
-            return blob_native, {k: v["args"] for k, v in grabbed.items()}
+            return blob_native, {k: v.get("args") for k, v in grabbed.items()}
         c, cap = archive_conf(data, make_conf())
         payload = staged("encode stages", enc_spec,
                          lambda: compress_torch(c, data, cap, dev, nthreads), rest[0])
@@ -1544,23 +1571,58 @@ def main() -> int:
                       flush=True)
         torch.cuda.empty_cache()
         stamp(f"{label} done")
-        return blob_native, {k: v["args"] for k, v in grabbed.items()}
+        return blob_native, {k: v.get("args") for k, v in grabbed.items()}
 
-    # NOPRED: 512^3 float32 and 256^3 float64; K1 on the element-order stream
+    def hold_path(label, s, enc_conf, dec_args, algo):
+        """K1, K2+K3, the count phase and the write phase against their plain
+        versions, bit for bit, on a stream of the main path: `s`, the stream
+        that the encode of (enc_conf, ...) made, and the Huffman stream of
+        the payload that the decode of `dec_args` opened. The packed words
+        must be that payload's stream, and the decode's symbols `s`."""
+        nonlocal k1_err, k2_err, k4_err, kw_err
+        rad = enc_conf.quantbinCnt // 2
+        e1, hist = hold_k1(f"{label} stream", s, rad)
+        _, nbits, tc, tl = de._tree_and_tables(hist, rad, s.numel(), dev)
+        e2, words = hold_pack(f"{label} stream", s, tc, tl, rad, nbits)
+        dconf, dpayload, ddt = dec_args[:3]
+        bits, count, lo, codes, lens, const_sym, _ = runtime.open_packed(dconf, dpayload, ddt,
+                                                                         algo=algo)
+        check(const_sym < 0 and count == s.numel(), f"{label}: not a Huffman stream of "
+                                                    f"{s.numel()} symbols")
+        check(de._stream_bytes(words, nbits) == bits,
+              f"{label}: the packed words are not the payload's Huffman stream")
+        del words, tc, tl
+        e4a, ewa = hold_decode(f"{label} stream", bits, codes, lens, lo, chained=False)
+        e4b, ewb = hold_decode(f"{label} stream, first 4096 windows",
+                               bits[:4096 * dec.W_BITS // 8], codes, lens, lo, chained=True)
+        check(torch.equal(dec.decode_stream(bits, count, codes, lens, lo, dev), s),
+              f"{label}: the decode's symbols are not the encode's stream")
+        print(f"  {label}: K1, K2+K3, the count and the write phase bit-equal to their plain "
+              f"versions on the path's stream; the decode gives back the encode's stream",
+              flush=True)
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+        k4_err, kw_err = max(k4_err, e4a, e4b), max(kw_err, ewa, ewb)
+        torch.cuda.empty_cache()
+        return hist
+
+    # NOPRED: 512^3 float32 and 256^3 float64; the kernels held against
+    # their plain versions on the element-order streams of the path
     nopred = szp.ALGO.NOPRED
-    case6("NOPRED 512^3", fields[512], lambda: conf6(nopred), nopred_enc_stages,
-          nopred_dec_stages, {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
-                              "dec": lambda s: s.get("huff_scan", 0) >= 1
-                              and s.get("huff_write") == 1},
-          busy_too=True, rest=(True, False))
-    # K1 on the NOPRED stream: the bins in element order
-    np_rad = conf6(nopred).quantbinCnt // 2
-    xf = torch.from_numpy(fields[512].reshape(-1)).to(dev)
-    np_stream = de.quantize(xf, torch.zeros_like(xf), EB, np_rad)[0]
-    del xf
-    np_hist, np_slots = ed.hist_and_literals(np_stream, np_rad)
+    np_capture = [(de, "encode_payload_device_nopred"), (dd, "decode_payload_device_nopred")]
+    _, got = case6("NOPRED 512^3", fields[512], lambda: conf6(nopred), nopred_enc_stages,
+                   nopred_dec_stages,
+                   {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
+                    "dec": lambda s: s.get("huff_scan", 0) >= 1 and s.get("huff_write") == 1},
+                   busy_too=True, capture=np_capture, rest=(True, False))
+    np_conf, np_x = got["encode_payload_device_nopred"][:2]
+    np_rad = np_conf.quantbinCnt // 2
+    np_stream = de.nopred_bins(np_x.reshape(-1), np_conf.absErrorBound, np_rad)
+    del np_x, got["encode_payload_device_nopred"]
+    np_hist = hold_path("NOPRED 512^3", np_stream, np_conf,
+                        got["decode_payload_device_nopred"], algo=3)
+    # K1's time and window shares on the NOPRED stream
     np_call, np_dev, np_kern = k1_on_card(np_stream, np_rad)
-    np_bound = bound(4 * np_stream.numel() + 4 * ed.table_len(np_rad) + 4 * np_slots.numel(),
+    np_bound = bound(4 * np_stream.numel() + 4 * ed.table_len(np_rad) + 4 * int(np_hist[0]),
                      4 * np_stream.numel())
     far = (np_stream[np_stream != 0].to(torch.int64) - np_rad).abs()
     print(f"  K1 on the NOPRED 512^3 stream ({np_stream.numel()} symbols in element order, "
@@ -1570,12 +1632,18 @@ def main() -> int:
           f"fill), bound {np_bound[0]:.4f} ms by {np_bound[1]}; share of the symbols within "
           f"+-64/512/2048/8190 of radius: "
           + " / ".join(f"{v:.5f} %" for v in window_shares(np_stream, np_rad)), flush=True)
-    del np_stream, np_hist, np_slots, far
+    del np_stream, np_hist, far, got
     torch.cuda.empty_cache()
-    case6("NOPRED 256^3 f64", fields[256].astype(np.float64), lambda: conf6(nopred),
-          nopred_enc_stages, nopred_dec_stages,
-          {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
-           "dec": lambda s: s.get("huff_write") == 1}, rest=(True, False))
+    _, got = case6("NOPRED 256^3 f64", fields[256].astype(np.float64), lambda: conf6(nopred),
+                   nopred_enc_stages, nopred_dec_stages,
+                   {"enc": lambda s: s == {"hist_literals": 1, "pack_bits": 1},
+                    "dec": lambda s: s.get("huff_write") == 1},
+                   capture=np_capture, rest=(True, False))
+    np_conf, np_x = got["encode_payload_device_nopred"][:2]
+    hold_path("NOPRED 256^3 f64", de.nopred_bins(np_x.reshape(-1), np_conf.absErrorBound,
+                                                 np_conf.quantbinCnt // 2),
+              np_conf, got["decode_payload_device_nopred"], algo=3)
+    del np_x, got
 
     # OpenMP-format archives: the default Config (tuner on), chunks on the
     # card one after the other, against the engine's threaded path at the
@@ -1588,11 +1656,22 @@ def main() -> int:
         "chunked ABS 1e-3, 6 chunks (ragged), 512^3": (lambda: conf6(openmp=True), 6, EB),
     }
     for label, (make, n, eb_b) in omp_cases.items():
-        blob_native, _ = case6(label, fields[512], make, omp_enc_stages, omp_dec_stages,
-                               {"enc": lambda s, n=n: s.get("hist_literals") == n
-                                and s.get("pack_bits") == n,
-                                "dec": lambda s, n=n: s.get("huff_write") == n},
-                               nthreads=n, bound_eb=eb_b, busy_too=n == CHUNKS and "ABS" in label)
+        first = n == CHUNKS and "ABS" in label
+        blob_native, got = case6(label, fields[512], make, omp_enc_stages, omp_dec_stages,
+                                 {"enc": lambda s, n=n: s.get("hist_literals") == n
+                                  and s.get("pack_bits") == n,
+                                  "dec": lambda s, n=n: s.get("huff_write") == n},
+                                 nthreads=n, bound_eb=eb_b, busy_too=first,
+                                 capture=[(de, "encode_payload_device"),
+                                          (dd, "decode_payload_device")] if first else None)
+        if first:       # the kernels on the last chunk's stream, against their plain versions
+            check(None not in got.values(), f"{label}: the last chunk did not take the INTERP "
+                                            f"device route")
+            ch_conf, ch_x = got["encode_payload_device"][:2]
+            torch_backend._resolve_anchor_stride(ch_conf)
+            hold_path(f"{label}, chunk {n} of {n} {tuple(ch_x.shape)}",
+                      stream_of(ch_x, ch_conf), ch_conf, got["decode_payload_device"], algo=2)
+            del ch_x, got
         blob_port = szp.compress(fields[512], make(), device="cuda", nthreads=n)
         by_engine = native_decompress(blob_port)
         by_port = szp.decompress(blob_native, device="cuda")[0].cpu().numpy()

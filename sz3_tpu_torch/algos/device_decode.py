@@ -36,7 +36,7 @@ from ..ops import stream_order
 from ..ops import xtc_device as xtc
 from ..ops.entropy_decode import decode_stream, upload_bytes
 from ..ops.interp_fast import decode_grid_fast, grid_to_pass_slices, initial_literal
-from ..ops.quantize import recover
+from ..ops.quantize import by_slices, recover
 from .device_encode import perm_for, plan_for
 
 
@@ -132,9 +132,9 @@ def decode_payload_device_nopred(conf: Config, payload: bytes, dtype,
     """NOPRED payload -> the float field (float32 or float64) on `device`,
     flat, with the entropy decode on that device (counterpart of
     ``decode_payload_device_nopred`` in sz3_tpu/algos/device_decode.py).
-    The stream is element order: the k-th zero bin takes the k-th literal,
-    and every other point is recovered against a zero prediction. Raises
-    ValueError on a payload whose counts disagree."""
+    The stream is element order: every point is recovered against a zero
+    prediction, slice by slice, then the k-th zero bin takes the k-th
+    literal. Raises ValueError on a payload whose counts disagree."""
     dtype = np.dtype(dtype)
     bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
         conf, payload, dtype, algo=3)
@@ -146,28 +146,31 @@ def decode_payload_device_nopred(conf: Config, payload: bytes, dtype,
     if slots.numel() != unpred.size:
         raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
     tdt = torch.float32 if dtype == np.float32 else torch.float64
-    literal = torch.zeros(num, dtype=tdt, device=device)
-    literal[slots] = upload_bytes(unpred.data, device)[:unpred.nbytes].view(tdt)
-    return recover(torch.zeros(num, dtype=tdt, device=device), dense, literal,
-                   conf.absErrorBound, conf.quantbinCnt // 2)
+    eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
+    zero = torch.zeros((), dtype=tdt, device=device)
+    out = by_slices(lambda b: recover(zero, b, zero, eb, radius),
+                    torch.empty(num, dtype=tdt, device=device), dense)
+    out[slots] = upload_bytes(unpred.data, device)[:unpred.nbytes].view(tdt)
+    return out
 
 
-def decode_payload_device_biomd(conf: Config, opened, device: torch.device) -> torch.Tensor:
-    """ALGO_BIOMD payload, opened by runtime.biomd_open into `opened`, ->
-    the float32 trajectory on `device`, shaped conf.dims (counterpart of
-    ``decode_payload_device_biomd`` in sz3_tpu/algos/device_decode.py). The
-    caller has checked that it is 3D with site != 0 and at least 2 live
+def decode_payload_device_biomd(conf: Config, payload: bytes,
+                                device: torch.device) -> torch.Tensor:
+    """ALGO_BIOMD payload -> the float32 trajectory on `device`, shaped
+    conf.dims (counterpart of ``decode_payload_device_biomd`` in
+    sz3_tpu/algos/device_decode.py). The caller has checked, from the
+    payload's header, that it is 3D with site != 0 and at least 2 live
     frames.
 
-      host:   HuffmanV2 + zstd open (runtime.biomd_open, by the caller) and
-              frame 0's recover chain (runtime.biomd_frame0_open)
+      host:   HuffmanV2 + zstd open (runtime.biomd_open) and frame 0's
+              recover chain (runtime.biomd_frame0_open)
       device: the literals to the zero bins of frames 1..last, in frame-major
               order, then the frame recurrence (ops/biomd_device.
               frames_recover); trailing fill frames written with the fill
 
     Raises ValueError where the literal stream is shorter than the zero
     bins."""
-    bins, unpred, site, first_fill, fill = opened
+    bins, unpred, site, first_fill, fill = runtime.biomd_open(conf, payload)
     frames, atoms, cols = conf.dims
     last = min(frames, first_fill)
     if bins.size != conf.num:
@@ -177,14 +180,16 @@ def decode_payload_device_biomd(conf: Config, opened, device: torch.device) -> t
     bins0 = bins[:acols].reshape(atoms, cols)
     n0 = int((bins0 == 0).sum())
     rest = torch.from_numpy(bins[acols:last * acols]).to(device).reshape(last - 1, atoms, cols)
-    zero = rest == 0
-    n_rest = int(zero.sum())
+    # the zero bins' flat positions, ascending: frame-major order (an index
+    # list, where masked_scatter_ would scan the whole mask in int64)
+    at = torch.nonzero(rest.reshape(-1) == 0).reshape(-1)
+    n_rest = at.numel()
     if unpred.size < n0 + n_rest:
         raise ValueError(f"biomd literal stream {unpred.size} < zero bins {n0 + n_rest}")
     recon0 = torch.from_numpy(
         runtime.biomd_frame0_open(eb, radius, site, bins0, unpred[:n0])).to(device)
     lits = torch.zeros(rest.shape, dtype=torch.float32, device=device)
-    lits.masked_scatter_(zero, torch.from_numpy(unpred[n0:n0 + n_rest]).to(device))
+    lits.view(-1)[at] = torch.from_numpy(unpred[n0:n0 + n_rest]).to(device)
     out = torch.empty((frames, atoms, cols), dtype=torch.float32, device=device)
     out[0] = recon0
     out[1:last] = bd.frames_recover(rest, lits, recon0, eb, radius, site)
@@ -198,29 +203,25 @@ def decode_payload_device_biomdxtc(conf: Config, payload: bytes,
     """ALGO_BIOMDXTC payload -> the float32 field (1D-3D) on `device`,
     shaped conf.dims (counterpart of ``decode_payload_device_biomdxtc`` in
     sz3_tpu/algos/device_decode.py): the host engine's XTC triplet decode to
-    the stored bins (runtime.biomdxtc_open), then on the device the literals
-    placed and one elementwise recover (ops/xtc_device.py). Raises
-    ValueError on a payload whose counts disagree."""
+    the stored bins (runtime.biomdxtc_open), then on the device one
+    elementwise recover (ops/xtc_device.py), slice by slice, and the
+    literals placed. Raises ValueError on a payload whose counts disagree."""
     stored, unpred, first_fill, fill = runtime.biomdxtc_open(conf, payload)
     dims = tuple(conf.dims)
     stored = torch.from_numpy(stored).to(device)
-    lit_at = stored == -xtc.XTC_RADIUS
-    nlit = int(lit_at.sum())
+    lit_at = torch.nonzero(stored == -xtc.XTC_RADIUS).reshape(-1)
+    nlit = lit_at.numel()
     if nlit != unpred.size:
         raise ValueError(f"biomdxtc literal count {nlit} != stream {unpred.size}")
-    literal = torch.zeros(stored.shape, dtype=torch.float32, device=device)
-    literal.masked_scatter_(lit_at, torch.from_numpy(unpred).to(device))
-    rec = xtc.xtc_recover(stored, literal, conf.absErrorBound)
-    if len(dims) != 3:
-        if rec.numel() != conf.num:
-            raise ValueError(f"biomdxtc bins {rec.numel()} != {conf.num} points")
-        return rec.reshape(dims)
-    fstride = dims[1] * dims[2]
-    last = min(dims[0], first_fill)
-    if rec.numel() != last * fstride:
-        raise ValueError(f"biomdxtc bins {rec.numel()} != live {last * fstride}")
+    last = min(dims[0], first_fill) if len(dims) == 3 else 1
+    live = conf.num if len(dims) != 3 else last * dims[1] * dims[2]
+    if stored.numel() != live:
+        raise ValueError(f"biomdxtc bins {stored.numel()} != {live} live points")
     out = torch.empty(dims, dtype=torch.float32, device=device)
-    out.reshape(-1)[:rec.numel()] = rec
-    if last < dims[0]:
+    rec = out.reshape(-1)[:live]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    by_slices(lambda b: xtc.xtc_recover(b, zero, conf.absErrorBound), rec, stored)
+    rec[lit_at] = torch.from_numpy(unpred).to(device)
+    if len(dims) == 3 and last < dims[0]:
         out[last:] = fill
     return out

@@ -26,7 +26,7 @@ first point's bin goes into the bins grid when there are no anchors.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +38,7 @@ from ..ops import entropy_device as ed
 from ..ops import stream_order
 from ..ops import xtc_device as xtc
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
-from ..ops.quantize import quantize
+from ..ops.quantize import by_slices, quantize
 from .huffman import build_table
 
 
@@ -152,20 +152,29 @@ def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
                                          qlu, qiu, unpred, cap)
 
 
+def nopred_bins(flat: torch.Tensor, eb: float, radius: int) -> torch.Tensor:
+    """The NOPRED stream of the flat field: its bins against a zero
+    prediction, in element order (int32, on flat's device), quantized slice
+    by slice."""
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    return by_slices(lambda d: quantize(d, zero, eb, radius)[0],
+                     torch.empty(flat.shape, dtype=torch.int32, device=flat.device), flat)
+
+
 def encode_payload_device_nopred(conf: Config, x: torch.Tensor, cap: int) -> bytes:
     """NOPRED payload of the float field `x` (float32 or float64, on the
     device that runs the encode) with the quantizer and the entropy stage on
     that device (counterpart of ``encode_payload_device_nopred`` in
     sz3_tpu/algos/device_encode.py; reference SZAlgoNopred.hpp:13-36).
 
-      device: quantize against a zero prediction; the stream is the flat
-              bins in element order, so no permutation; K1, then K2+K3
+      device: quantize against a zero prediction (nopred_bins); the stream
+              is the flat bins in element order, so no permutation; K1, then K2+K3
               after the host's tree, as in encode_payload_device
       host:   payload framing + zstd (runtime.nopred_seal_packed)"""
     radius = conf.quantbinCnt // 2
     flat = x.reshape(-1)
     num = flat.numel()
-    bins, _ = quantize(flat, torch.zeros_like(flat), conf.absErrorBound, radius)
+    bins = nopred_bins(flat, conf.absErrorBound, radius)
     hist, slots = ed.hist_and_literals(bins, radius)
     tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, x.device)
     words = ed.pack_bits(bins, tc, tl, radius, total_bits)
@@ -174,31 +183,13 @@ def encode_payload_device_nopred(conf: Config, x: torch.Tensor, cap: int) -> byt
     return runtime.nopred_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)
 
 
-def biomd_on_device(conf: Config, data: np.ndarray) -> Optional[Tuple[int, int, float]]:
-    """(site, first fill frame, fill value) when the device runs this BIOMD
-    encode, else None (the host engine's route): float32 3D trajectories
-    with a molecular period (site != 0) and at least 2 live frames, as the
-    JAX package routes them. Host numpy over at most 100 x 5 values of
-    frame 1 and one scan back over the trailing frames."""
-    if data.dtype != np.float32 or len(conf.dims) != 3 or conf.dims[0] < 2:
-        return None
-    data = data.reshape(conf.dims)
-    site = bd.cal_site(data[1])
-    if site == 0:
-        return None
-    first_fill, fill = bd.find_fill(data)
-    if min(conf.dims[0], first_fill) < 2:
-        return None
-    return site, first_fill, fill
-
-
 def encode_payload_device_biomd(conf: Config, x: torch.Tensor, cap: int, site: int,
                                 first_fill: int, fill: float) -> bytes:
     """ALGO_BIOMD payload of the float32 trajectory `x` (on the device that
     runs the encode, shaped conf.dims), with frames 1..last on that device
     (counterpart of ``encode_payload_device_biomd`` in
     sz3_tpu/algos/device_encode.py). `site`, `first_fill` and `fill` come
-    from biomd_on_device.
+    from the dispatcher's route check (torch_backend._biomd_on_device).
 
       host:   frame 0's atom chain (runtime.biomd_frame0), uploaded once
       device: frames 1..last (ops/biomd_device.frames_encode); the literals,
@@ -224,15 +215,16 @@ def encode_payload_device_biomdxtc(conf: Config, x: torch.Tensor, cap: int,
                                    first_fill: int, fill: float) -> bytes:
     """ALGO_BIOMDXTC payload of the float32 field `x` (1D-3D, on the device
     that runs the encode, shaped conf.dims): one elementwise quantize at the
-    XTC radius on that device (ops/xtc_device.py), the XTC triplet coder in
-    the host engine (runtime.biomdxtc_seal). For 3D data the frames from
+    XTC radius on that device (ops/xtc_device.py), slice by slice, the XTC
+    triplet coder in the host engine (runtime.biomdxtc_seal). For 3D data the frames from
     `first_fill` on (trailing frames of one fill value, found on the host)
     are left out, as the engine does; 1D and 2D data pass 0 and 0.0."""
     if len(conf.dims) == 3:
         live = x[:min(conf.dims[0], first_fill)].reshape(-1)
     else:
         live = x.reshape(-1)
-    stored = xtc.xtc_quantize(live, conf.absErrorBound)
+    stored = by_slices(lambda d: xtc.xtc_quantize(d, conf.absErrorBound),
+                       torch.empty(live.shape, dtype=torch.int32, device=x.device), live)
     unpred = torch.masked_select(live, stored == -xtc.XTC_RADIUS)
     return runtime.biomdxtc_seal(conf, stored.cpu().numpy(), unpred.cpu().numpy(), first_fill,
                                  np.float32(fill), cap)

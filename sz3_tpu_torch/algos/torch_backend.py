@@ -27,7 +27,7 @@ takes (jax_backend.py:337-384):
     Lorenzo only there, and a 1D sweep is one chain of dependent cells);
   - BIOMD other than 3D float32, and trajectories with no molecular period
     (site == 0: every frame is a chain down the atoms) or fewer than 2 live
-    frames; the decode decides from the opened payload's site and fill frame;
+    frames; the decode decides from the payload header's site and fill frame;
   - BIOMDXTC other than float32 of 1 to 3 dimensions.
 The host engine's BIOMD and BIOMDXTC bindings are float32 only. NOPRED
 float64 runs on the device: the JAX package's float32 gate there exists only
@@ -37,7 +37,7 @@ because the TPU has no IEEE float64.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,34 @@ def _blockwise_on_device(conf: Config, dtype, encode: bool) -> bool:
     return conf.lorenzo or conf.lorenzo2 or conf.regression
 
 
+def _biomd_on_device(conf: Config, data: np.ndarray) -> Optional[Tuple[int, int, float]]:
+    """(site, first fill frame, fill value) when the device runs this BIOMD
+    encode, else None (the host engine's route): float32 3D trajectories
+    with a molecular period (site != 0) and at least 2 live frames, as the
+    JAX package routes them. Host numpy over at most 100 x 5 values of
+    frame 1 and one scan back over the trailing frames."""
+    if data.dtype != np.float32 or len(conf.dims) != 3 or conf.dims[0] < 2:
+        return None
+    data = data.reshape(conf.dims)
+    site = bd.cal_site(data[1])
+    if site == 0:
+        return None
+    first_fill, fill = bd.find_fill(data)
+    if min(conf.dims[0], first_fill) < 2:
+        return None
+    return site, first_fill, fill
+
+
+def _biomd_decode_on_device(conf: Config, payload: bytes, dt) -> bool:
+    """Whether the device runs this BIOMD decode: float32 3D, and a payload
+    header (read without opening the bins) with site != 0 and at least 2
+    live frames."""
+    if dt != np.float32 or len(conf.dims) != 3:
+        return False
+    site, first_fill, _ = runtime.biomd_header(payload)
+    return site != 0 and min(conf.dims[0], first_fill) >= 2
+
+
 def _encode_route(conf: Config, data: np.ndarray) -> Optional[tuple]:
     """None where the host engine runs this encode; else the host-side facts
     the device route needs (BIOMD: site, first fill frame, fill value;
@@ -78,7 +106,7 @@ def _encode_route(conf: Config, data: np.ndarray) -> Optional[tuple]:
     if algo in (ALGO.INTERP, ALGO.NOPRED):
         return () if dt in _FLOATS else None
     if algo == ALGO.BIOMD:
-        return device_encode.biomd_on_device(conf, data)
+        return _biomd_on_device(conf, data)
     if algo == ALGO.BIOMDXTC:
         if dt != np.float32 or len(conf.dims) > 3:
             return None
@@ -160,11 +188,8 @@ def decompress_payload_torch(conf: Config, payload: bytes, dtype,
     if algo == ALGO.NOPRED and dt in _FLOATS:
         return device_decode.decode_payload_device_nopred(conf, payload, dt,
                                                           device).reshape(conf.dims)
-    if algo == ALGO.BIOMD and dt == np.float32 and len(conf.dims) == 3:
-        opened = runtime.biomd_open(conf, payload)
-        _, _, site, first_fill, _ = opened
-        if site != 0 and min(conf.dims[0], first_fill) >= 2:
-            return device_decode.decode_payload_device_biomd(conf, opened, device)
+    if algo == ALGO.BIOMD and _biomd_decode_on_device(conf, payload, dt):
+        return device_decode.decode_payload_device_biomd(conf, payload, device)
     if algo == ALGO.BIOMDXTC and dt == np.float32 and len(conf.dims) <= 3:
         return device_decode.decode_payload_device_biomdxtc(conf, payload, device)
     out = runtime.decompress_payload(conf, payload,

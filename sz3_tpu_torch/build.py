@@ -14,7 +14,7 @@ bit parity with the reference codec depends on; ``-march=native`` is then
 safe and buys vector width for the quantizer loops. The engine links zstd.
 Some machines carry zstd's runtime library (``libzstd.so.1``) but not its
 development files (``zstd.h``, the ``libzstd.so`` link); there the build
-takes ``csrc/zstd/zstd.h`` (the declarations of the six zstd functions the
+takes ``csrc/zstd/zstd.h`` (the declarations of the zstd functions the
 engine calls) and a ``libzstd.so`` link to the installed runtime library,
 both named on the compiler's command line. The engine then links the
 machine's own zstd, so archives stay the ones the engine writes everywhere

@@ -1488,4 +1488,31 @@ int szt_open_packed64(SztConf* conf, int algo, const uint8_t* payload, uint64_t 
     }
 }
 
+
+// The first n bytes of a zstd-packed payload ([raw length u64][zstd frame]),
+// decompressed as a stream that stops there: a BIOMD payload's codec header
+// (site, first fill frame, fill value) without the rest of the frame.
+int szt_zstd_head(const uint8_t* payload, uint64_t len, uint8_t* out, uint64_t n, char* err,
+                  uint64_t errcap) {
+    ZSTD_DCtx* dctx = nullptr;
+    try {
+        if (len < sizeof(size_t)) throw std::runtime_error("szt: truncated zstd frame");
+        dctx = ZSTD_createDCtx();
+        if (dctx == nullptr) throw std::bad_alloc();
+        ZSTD_inBuffer in{payload + sizeof(size_t), len - sizeof(size_t), 0};
+        ZSTD_outBuffer head{out, n, 0};
+        while (head.pos < n && in.pos < in.size) {
+            size_t rc = ZSTD_decompressStream(dctx, &head, &in);
+            if (ZSTD_isError(rc)) throw std::runtime_error(ZSTD_getErrorName(rc));
+            if (rc == 0) break;     // the frame ended
+        }
+        if (head.pos < n) throw std::runtime_error("szt: payload shorter than its header");
+        ZSTD_freeDCtx(dctx);
+        return 0;
+    } catch (const std::exception& e) {
+        ZSTD_freeDCtx(dctx);
+        return fail(e, err, errcap);
+    }
+}
+
 }  // extern "C"

@@ -6,6 +6,10 @@ The card has IEEE f64, so the quantizer is the plain f64 formulation and
 nothing of the TPU's softfloat, verify or pow2-screen modes is needed. Every
 arithmetic step is its own eager op, so each rounds once: no op here may be
 fused into a multiply-add. Generic over float32 and float64 data.
+
+The quantizers of NOPRED and BIOMDXTC are elementwise passes over a whole
+field. ``by_slices`` runs such a pass slice by slice into one output, so its
+float64 temporaries hold one slice and not the field.
 """
 
 from __future__ import annotations
@@ -41,3 +45,18 @@ def recover(pred: torch.Tensor, bins: torch.Tensor, literal: torch.Tensor,
     dec = (pred.to(torch.float64)
            + (2 * (bins - radius)).to(torch.float64) * eb).to(pred.dtype)
     return torch.where(bins != 0, dec, literal)
+
+
+# elements a slice of an elementwise pass: its float64 temporaries, some 60
+# bytes an element, stay near 256 MiB whatever the field's size
+SLICE = 1 << 22
+
+
+def by_slices(fn, out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """out[a:b] = fn(*(t[a:b] for t in inputs)) over consecutive slices of
+    SLICE elements of the flat tensors `out` and `inputs`; returns `out`."""
+    n = out.numel()
+    for a in range(0, n, SLICE):
+        b = min(n, a + SLICE)
+        out[a:b] = fn(*(t[a:b] for t in inputs))
+    return out

@@ -199,6 +199,8 @@ def lib() -> C.CDLL:
                                      C.POINTER(u64), f32pp, C.POINTER(u64),
                                      C.POINTER(C.c_int32), C.POINTER(u64),
                                      C.POINTER(C.c_float), C.c_char_p, u64]
+        l.szt_zstd_head.restype = C.c_int
+        l.szt_zstd_head.argtypes = [C.c_char_p, u64, C.c_void_p, u64, C.c_char_p, u64]
         l.szt_biomdxtc_seal.restype = C.c_int
         l.szt_biomdxtc_seal.argtypes = [C.POINTER(SztConfC), C.c_void_p, u64, C.c_void_p,
                                         u64, u64, C.c_float, u64, C.POINTER(u8p),
@@ -836,6 +838,22 @@ def biomd_open(conf: Config, payload: bytes):
     lib().szt_free(C.cast(up, C.c_void_p))
     return (bins[:nbins.value], unpred, int(site.value),
             int(first_fill.value), float(fill.value))
+
+
+def biomd_header(payload: bytes):
+    """An ALGO_BIOMD payload's codec header, (site, first_fill, fill), read
+    from the first 16 bytes of its zstd frame without opening the rest
+    (biomd.hpp BioMDCodec::save: int32 site, u64 first fill frame, f32
+    fill)."""
+    head = np.empty(16, np.uint8)
+    err = C.create_string_buffer(_ERRCAP)
+    rc = lib().szt_zstd_head(payload, C.c_uint64(len(payload)),
+                             head.ctypes.data_as(C.c_void_p), C.c_uint64(head.size), err, _ERRCAP)
+    if rc != 0:
+        raise RuntimeError(f"szt_zstd_head: {err.value.decode()}")
+    b = head.tobytes()
+    return (int(np.frombuffer(b, "<i4", 1, 0)[0]), int(np.frombuffer(b, "<u8", 1, 4)[0]),
+            float(np.frombuffer(b, "<f4", 1, 12)[0]))
 
 
 def biomdxtc_seal(conf: Config, bins: np.ndarray, unpred: np.ndarray,

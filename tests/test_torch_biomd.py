@@ -85,7 +85,7 @@ def test_engine_routes(case, monkeypatch):
     if case == "aperiodic":
         assert tbd.cal_site(traj[1]) == 0
     _forbid(monkeypatch, (tbd, "frames_encode"), (tbd, "frames_recover"),
-            (runtime, "biomd_frame0"), (runtime, "biomd_seal"))
+            (runtime, "biomd_frame0"), (runtime, "biomd_seal"), (runtime, "biomd_open"))
     _roundtrip(traj, eb=1e-6 if case == "f64" else 1e-3)
 
 
@@ -162,11 +162,25 @@ def test_truncated_literal_stream_raises(drop, monkeypatch):
     traj = md_traj(frames=10, atoms=60, seed=2)
     traj.reshape(-1)[200::50] = 1e6                      # literals after frame 0
     conf, payload = _payload(traj)
-    bins, unpred, site, first_fill, fill = runtime.biomd_open(conf.copy(), payload)
+    real = runtime.biomd_open
+    bins, unpred, site, first_fill, fill = real(conf.copy(), payload)
     assert unpred.size > drop
+    monkeypatch.setattr(runtime, "biomd_open",
+                        lambda c, p: (bins, unpred[:-drop], site, first_fill, fill))
     with pytest.raises(ValueError, match="literal stream"):
-        tdd.decode_payload_device_biomd(conf, (bins, unpred[:-drop], site, first_fill, fill),
-                                        CPU)
+        tdd.decode_payload_device_biomd(conf, payload, CPU)
+
+
+@pytest.mark.parametrize("kw", CASES + [dict(frames=6, fill_tail=5), dict(frames=1)])
+def test_header_read_equals_the_open(kw):
+    """runtime.biomd_header reads the site, first fill frame and fill value
+    that the full open (zstd and HuffmanV2) returns."""
+    traj = md_traj(**kw)
+    conf, payload = _payload(traj)
+    _, _, site, first_fill, fill = runtime.biomd_open(conf.copy(), payload)
+    assert runtime.biomd_header(payload) == (site, first_fill, fill)
+    with pytest.raises(RuntimeError, match="szt_zstd_head"):
+        runtime.biomd_header(payload[:12])
 
 
 def test_cal_site_and_find_fill_match_jax():

@@ -118,6 +118,18 @@ int main() {
     std::vector<unsigned char> back(src.size());
     size_t m = ZSTD_decompress(back.data(), back.size(), dst.data(), n);
     if (ZSTD_isError(m) || back != src) return 3;
+    // the first 100 bytes through the streaming decoder, which stops there
+    ZSTD_DCtx* d = ZSTD_createDCtx();
+    std::vector<unsigned char> head(100);
+    ZSTD_inBuffer in = {dst.data(), n, 0};
+    ZSTD_outBuffer out = {head.data(), head.size(), 0};
+    while (out.pos < out.size && in.pos < in.size) {
+        size_t r = ZSTD_decompressStream(d, &out, &in);
+        if (ZSTD_isError(r) || r == 0) break;
+    }
+    ZSTD_freeDCtx(d);
+    if (out.pos != head.size()) return 4;
+    for (size_t i = 0; i < head.size(); ++i) if (head[i] != src[i]) return 5;
     for (size_t i = 0; i < n; ++i) std::printf("%02x", dst[i]);
     return 0;
 }

@@ -24,7 +24,8 @@ ENGINE = ROOT / "sz3_tpu_torch" / "csrc" / "engine"
 
 # engine sources that differ from their originals, and why
 ENGINE_DIFFERS = {
-    "szt_core.cpp": "adds szt_open_packed64 (the code table exported as uint64) at the end",
+    "szt_core.cpp": "adds szt_open_packed64 (the code table exported as uint64) and "
+                    "szt_zstd_head (a payload's first bytes, for BIOMD's header) at the end",
     "szt/bridge.hpp": "interp_open_packed and nopred_open_packed take the code width from "
                       "the caller's vector",
     "szt/huffman.hpp": "export_loaded_codes is a template on the code width (32 or 64 bits)",
@@ -125,7 +126,8 @@ def test_engine_source_equals_original(name):
     assert mine != orig, f"{name} no longer differs: take it off the list"
     if name == "szt_core.cpp":                           # a pure addition
         assert mine.startswith(orig.rstrip(b"\n"))
-        assert b"szt_open_packed64" in mine[len(orig) - 1:] and b"szt_open_packed64" not in orig
+        for added in (b"szt_open_packed64", b"szt_zstd_head"):
+            assert added in mine[len(orig) - 1:] and added not in orig
     else:                                                # a few lines, nothing removed elsewhere
         a, b = orig.decode().splitlines(), mine.decode().splitlines()
         changed = len(set(a) ^ set(b))
@@ -137,7 +139,7 @@ def test_runtime_binds_every_engine_function_of_the_original():
     pat = re.compile(r"szt_\w+")
     jnames = set(pat.findall((ROOT / "sz3_tpu" / "runtime.py").read_text()))
     pnames = set(pat.findall((ROOT / "sz3_tpu_torch" / "runtime.py").read_text()))
-    assert jnames <= pnames and pnames - jnames == {"szt_open_packed64"}
+    assert jnames <= pnames and pnames - jnames == {"szt_open_packed64", "szt_zstd_head"}
     public = [n for n in dir(jruntime) if not n.startswith("_") and callable(getattr(jruntime, n))]
     assert all(hasattr(pruntime, n) for n in public)
 

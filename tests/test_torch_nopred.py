@@ -15,6 +15,7 @@ from sz3_tpu_torch import runtime
 from sz3_tpu_torch.algos import device_decode as tdd
 from sz3_tpu_torch.algos import device_encode as tde
 from sz3_tpu_torch.ops import entropy_device as ted
+from sz3_tpu_torch.ops import quantize as tq
 
 CPU = torch.device("cpu")
 
@@ -162,3 +163,28 @@ def test_truncated_literal_stream_raises(monkeypatch):
     monkeypatch.setattr(tdd.runtime, "open_packed", short)
     with pytest.raises(ValueError, match="literal stream length"):
         tdd.decode_payload_device_nopred(conf.copy(), payload, np.float32, CPU)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_quantize_and_recover_by_slices(dtype, monkeypatch):
+    """The quantize and the recover run slice by slice (ops/quantize.SLICE,
+    which bounds their float64 temporaries); slices that do not divide the
+    field, with literals in many of them, give the engine's archive and
+    decode."""
+    monkeypatch.setattr(tq, "SLICE", 4093)
+    x = _field((20, 31, 33), dtype, seed=7)
+    x.reshape(-1)[::61] = 1e6
+    calls = {"quantize": 0, "recover": 0}
+    for mod, name in ((tde, "quantize"), (tdd, "recover")):
+        real = getattr(mod, name)
+
+        def spy(*a, _r=real, _n=name):
+            calls[_n] += 1
+            return _r(*a)
+
+        monkeypatch.setattr(mod, name, spy)
+    algo, out = _roundtrip(x)
+    assert algo == P.ALGO.NOPRED
+    assert calls == {"quantize": -(-x.size // 4093), "recover": -(-x.size // 4093)}
+    lit = x == 1e6
+    assert np.array_equal(_bits(out[lit]), _bits(x[lit]))

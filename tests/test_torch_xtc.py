@@ -17,6 +17,7 @@ import sz3_tpu_torch.config as P
 from sz3_tpu.ops import xtc_device as jxtc
 from sz3_tpu_torch import runtime
 from sz3_tpu_torch.algos import device_decode as tdd
+from sz3_tpu_torch.ops import quantize as tq
 from sz3_tpu_torch.ops import xtc_device as txtc
 
 from test_xtc_device import CASES, EBS, md_traj
@@ -146,3 +147,22 @@ def test_literal_count_mismatch_raises(monkeypatch):
     monkeypatch.setattr(runtime, "biomdxtc_open", short)
     with pytest.raises(ValueError, match="literal count"):
         tdd.decode_payload_device_biomdxtc(conf, payload, CPU)
+
+
+@pytest.mark.parametrize("kw", [dict(frames=10, atoms=120, seed=4),
+                                dict(frames=12, atoms=90, seed=5, fill_tail=3)])
+def test_quantize_and_recover_by_slices(kw, monkeypatch):
+    """The quantize and the recover run slice by slice (ops/quantize.SLICE);
+    slices that do not divide the live frames, literals among them, give
+    the engine's archive and decode."""
+    monkeypatch.setattr(tq, "SLICE", 997)
+    traj = md_traj(**kw)
+    frames = kw["frames"] - kw.get("fill_tail", 0)
+    traj[:frames].reshape(-1)[::53] = np.nan          # literals in the live frames
+    calls = []
+    for name in ("xtc_quantize", "xtc_recover"):
+        real = getattr(txtc, name)
+        monkeypatch.setattr(txtc, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    _roundtrip(traj)
+    n = -(-frames * kw["atoms"] * 3 // 997)
+    assert calls == ["xtc_quantize"] * n + ["xtc_recover"] * n
