@@ -28,6 +28,8 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      bound (planes times one empty dependent launch, measured here); the
      BIOMD frame recurrence (biomd_frames) in both forms on 64 frames of
      9,999 atoms (sites 3 and 4) with NaN, Inf, subnormal and huge values;
+     the MDZ frame recurrence (mdz_frames) in both forms on 64 frames of
+     9,999 atoms with the same values, at ABS 1e-3 and at an infinite bound;
   3. the inputs the JAX package sends to the host (no anchor grid, bins far
      from radius, a constant stream, f64, codes over 32 bits) compressed and
      decompressed on the card, archives sha256-equal to the host engine's
@@ -36,10 +38,12 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      printed), the three golden archives, and the 1D default field, which
      must go to the host engine without a kernel launch;
   4. the main path: sz3_tpu_torch.compress / decompress on the card at
-     ABS 1e-3 with the default Config (tuner on), on bench.nyx_like(256) and
-     nyx_like(512), and an f64 round trip at 256^3. The archives must be
-     sha256-equal to the host engine's, the decodes bit-equal to its decode
-     and within the bound, and every kernel launched. Wall times, where the
+     ABS 1e-3 with the default Config (the tuner's trials on the card), on
+     bench.nyx_like(256) and nyx_like(512), and an f64 round trip at 256^3.
+     The archives must be sha256-equal to the host engine's, the decodes
+     bit-equal to its decode and within the bound, the device tuner's
+     decisions equal to the host engine's tuner (both timed), and every
+     kernel launched. Wall times, where the
      encode and decode time goes, the warm decode's peak device memory, and
      the card's busy time over one warm encode and decode, split by kind
      (torch.profiler); K1 timed on each size's stream;
@@ -56,15 +60,25 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      and nyx_like(256) f64, with K1's window shares on its element-order
      stream; OpenMP-format archives of the default Config on nyx_like(512)
      in 8 chunks at ABS 1e-3 and REL 1e-3 and in 6 (ragged), each decoded
-     across (the port's archive by the engine, the engine's on the card).
+     across (the port's archive by the engine, the engine's on the card),
+     and each chunk's device tuning held to the host engine's tuner.
      K1, K2+K3, the count and the write phase are held against their plain
      versions, bit for bit, on both NOPRED streams and on the last chunk's
      stream of the 8-chunk ABS archive, each the stream that the main path
      encoded and decoded (captured from the device encode and decode);
      BIOMD and BIOMDXTC on a water-like trajectory of 500 frames of the
-     ApoA1 system's 92,224 atoms (553 MB), and on one with 100 trailing fill
+     ApoA1 system's 92,224 atoms (553 MB), and on one of 200 frames whose last 100 are fill
      frames; biomd_frames against its plain versions at that shape, timed; the golden NOPRED, OpenMP, BIOMD
-     and BIOMDXTC archives decoded on the card.
+     and BIOMDXTC archives decoded on the card;
+  7. MDZ (sz3_tpu_torch.mdz) against the host engine's szt_mdz_compress /
+     szt_mdz_decompress: a lattice trajectory of 500 frames x 92,224 atoms x
+     3 (553 MB) under ADP at REL 1e-3 in batches of 100, its first 100
+     frames with VQ, VQT and MT pinned, and phase 6's water-like trajectory
+     under ADP; archives sha256-equal, decodes bit-equal and within the
+     bound, each side decoding the other's archive; walls cold and warm,
+     stages, warm peaks, each batch's method and mdz_frames' launches;
+     mdz_frames against its plain versions on the VQT case's own input,
+     timed with its bound.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -99,6 +113,7 @@ OPS_PER_S = 67e12
 
 
 TRAJ_FRAMES, TRAJ_ATOMS = 500, 92_224   # the ApoA1 MD benchmark system's atoms
+FILL_FRAMES = 200          # the fill-frame trajectory: 100 live frames, then 100 of fill
 CHUNKS = 8
 
 
@@ -159,9 +174,10 @@ def main() -> int:
 
     import sz3_tpu_torch as szp
     from bench import nyx_like
+    from sz3_tpu_torch import mdz
     from sz3_tpu_torch.algos import device_decode as dd
     from sz3_tpu_torch.algos import device_encode as de
-    from sz3_tpu_torch.algos import torch_backend
+    from sz3_tpu_torch.algos import mdz_torch, torch_backend, tuner
     from sz3_tpu_torch.algos.huffman import build_table
     from sz3_tpu_torch.api import archive_conf
     from sz3_tpu_torch.ops import biomd_device as bd
@@ -170,10 +186,13 @@ def main() -> int:
     from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
     from sz3_tpu_torch.ops import entropy_decode as dec
     from sz3_tpu_torch.ops import entropy_device as ed
+    from sz3_tpu_torch.ops import mdz_device as md
     from sz3_tpu_torch.ops import stream_order
     from sz3_tpu_torch.ops import xtc_device as xtc
     from sz3_tpu_torch.ops.interp_fast import (bins_to_grid, decode_grid_fast, encode_grid_fast,
                                                grid_to_pass_slices, initial_literal)
+    from sz3_tpu_torch.parallel import chunked
+    from sz3_tpu_torch.stats import cal_abs_error_bound
 
     dev = torch.device("cuda")
 
@@ -305,14 +324,27 @@ def main() -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     def tuned_conf(data):
-        """The Config that compress() encodes `data` with: tuned by the host
-        engine, anchor stride resolved (the archive's tail does not carry
-        every tuned parameter; the payload header does)."""
+        """The Config that compress() encodes `data` with: tuned by the
+        device tuner, anchor stride resolved (the archive's tail does not
+        carry every tuned parameter; the payload header does)."""
         conf = szp.Config(absErrorBound=EB)
         conf.set_dims(data.shape)
-        runtime.tune_interp(conf, data)
+        check(tuner.tune(conf, data, dev), "the device tuner declined a 3D float field")
         torch_backend._resolve_anchor_stride(conf)
         return conf
+
+    tuned_fields = ("cmprAlgo", "interpAlgo", "interpDirection", "interpAlpha", "interpBeta")
+
+    def both_tuners(conf, data):
+        """The device tuner and the host engine's on copies of `conf`: their
+        decisions, checked equal, and both times (s)."""
+        dconf, hconf = conf.copy(), conf.copy()
+        ok, dev_s = sync_time(lambda: tuner.tune(dconf, data, dev))
+        _, host_s = sync_time(lambda: runtime.tune_interp(hconf, data))
+        got = {f: float(getattr(dconf, f)) for f in tuned_fields}
+        want = {f: float(getattr(hconf, f)) for f in tuned_fields}
+        check(ok and got == want, f"device tuner {got} != host engine's {want}")
+        return got, dev_s, host_s
 
     def stream_of(x, conf):
         plan = de.plan_for(conf)
@@ -935,6 +967,48 @@ def main() -> int:
         del xt, r0, bk, bp, rand_bins, lits, rk, rp, traj, live
     torch.cuda.empty_cache()
 
+    # the MDZ frame recurrence (mdz_frames.cu) in both forms against its
+    # plain versions, bit for bit: 64 frames x 9,999 atoms with NaN, Inf,
+    # subnormal and huge values, at ABS 1e-3 and at an infinite bound (a REL
+    # bound over an infinite range), MDZ's default radius; the recover form
+    # on the encode's bins and on bins across the quantizer's range. Times
+    # at the main path's shape are taken in phase 7.
+    mdz_err = 0
+    mdz_rad = 512
+    for feb in (EB, float("inf")):
+        rng_m = np.random.default_rng(11)
+        xs = (rng_m.uniform(-5, 5, 9_999)[None]
+              + np.cumsum(rng_m.normal(0, 0.01, (64, 9_999)), axis=0)).astype(np.float32)
+        live = xs[1:].reshape(-1)
+        live[::97] = np.nan
+        live[5::131] = np.inf
+        live[7::137] = -np.inf
+        live[11::139] = np.float32(3e-39)
+        live[13::149] = np.float32(2.0 ** 40)
+        xt = torch.from_numpy(np.ascontiguousarray(xs[1:])).to(dev)
+        r0 = torch.from_numpy(xs[0] + np.float32(1e-4)).to(dev)
+        bk = md.frames_encode(xt, r0, feb, mdz_rad)
+        bp = md.frames_encode_plain(xt, r0, feb, mdz_rad)
+        torch.cuda.synchronize()
+        err = max_abs_diff(bk, bp)
+        rand_bins = torch.from_numpy(np.where(
+            rng_m.random(bk.shape) < 0.05, 0,
+            rng_m.integers(1, 2 * mdz_rad, bk.shape)).astype(np.int32)).to(dev)
+        for b in (bk, rand_bins):
+            lits = xt.t().reshape(-1)[(b.reshape(-1) == 0).nonzero().reshape(-1)]
+            starts = md.literal_starts(b, lits.numel())
+            rk = md.frames_recover(b, lits, starts, r0, feb, mdz_rad)
+            rp = md.frames_recover_plain(b, lits, starts, r0, feb, mdz_rad)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_diff(rk.view(torch.int32), rp.view(torch.int32)))
+        check(err == 0, f"mdz_frames at eb {feb}: differs from its plain version (max abs diff "
+                        f"{err})")
+        mdz_err = max(mdz_err, err)
+        print(f"mdz_frames at eb {feb} ({tuple(xt.shape)} frames after frame 0): both forms "
+              f"bit-equal to plain (literals {int((bk == 0).sum())} of {bk.numel()})", flush=True)
+        del xt, r0, bk, bp, rand_bins, lits, starts, rk, rp, xs, live
+    torch.cuda.empty_cache()
+
     stamp("phase 2 done")
 
     # ---- phase 3: inputs the JAX package hands to the host ----------------------
@@ -1167,6 +1241,17 @@ def main() -> int:
               f"first decompress {first_peak / 2**30:.2f} GiB", flush=True)
         del out, out_np
 
+        # the device tuner (on the main path since PR 7) against the host
+        # engine's: the same decisions, both times, twice each
+        base = szp.Config(absErrorBound=EB)
+        base.set_dims(data.shape)
+        runs = [both_tuners(base, data) for _ in range(2)]
+        busy_ms, wall_ms, events, kinds = busy(lambda: tuner.tune(base.copy(), data, dev))
+        print(f"  tuner at {n}^3: device {runs[0][1]:.4f} / {runs[1][1]:.4f} s, host engine "
+              f"{runs[0][2]:.4f} / {runs[1][2]:.4f} s (two calls each); decisions equal "
+              f"{runs[1][0]}; one device tune under torch.profiler: {events} device events, "
+              f"busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall", flush=True)
+
         # where the encode time goes: the stages of compress, one by one
         c, tune_s = sync_time(lambda: tuned_conf(data))
         x, up_s = sync_time(lambda: torch.from_numpy(data.reshape(c.dims)).to(dev))
@@ -1188,7 +1273,7 @@ def main() -> int:
             c, tree, bits, nbits, stream.numel(), unpred, 1 << 40))
         _, payload_native = szp.open_archive(blob_native)
         check(payload == payload_native, f"{n}^3 staged payload differs")
-        print(f"  encode stages (s): host tune {tune_s:.3f}, upload {up_s:.3f}, "
+        print(f"  encode stages (s): device tune {tune_s:.3f}, upload {up_s:.3f}, "
               f"device passes {pass_s:.3f} (events {pass_ms / 1e3:.3f}), stream gather "
               f"{gather_s:.3f}, K1 {k1_s:.3f}, host tree {tree_s:.3f}, K2+K3 {k2_s:.3f}, "
               f"D2H {d2h_s:.3f}, host seal {seal_s:.3f}", flush=True)
@@ -1312,7 +1397,7 @@ def main() -> int:
     def stage_line(stages, order):
         return ", ".join(f"{name} {sum(stages[name]):.4f}"
                          + (f" ({len(stages[name])} calls)" if len(stages[name]) > 1 else "")
-                         for _, _, name in order if name in stages)
+                         for name in dict.fromkeys(n for _, _, n in order) if name in stages)
 
     lr_passes = {}
     for n in SIZES:
@@ -1682,13 +1767,36 @@ def main() -> int:
         print(f"  cross decode: the port's archive in the engine and the engine's on the card, "
               f"bit-equal ({nch} chunks)", flush=True)
         del blob_port, by_engine, by_port
+        # each chunk's tuning, as compress_chunked hands it to the dispatcher:
+        # the device tuner against the host engine's
+        cc = make()
+        cc.set_dims(fields[512].shape)
+        whole = fields[512].reshape(cc.dims)
+        if cc.errorBoundMode != szp.EB.ABS:
+            cal_abs_error_bound(cc, whole, float(whole.max() - whole.min()))
+        dev_s = host_s = 0.0
+        picks = set()
+        for lo, hi in chunked._chunk_bounds(cc.dims[0], n):
+            part = np.ascontiguousarray(whole[lo:hi])
+            pc = cc.copy()
+            pc.set_dims(part.shape)
+            pc.openmp = False
+            cal_abs_error_bound(pc, part)
+            got, d_s, h_s = both_tuners(pc, part)
+            dev_s, host_s = dev_s + d_s, host_s + h_s
+            picks.add(tuple(got.values()))
+        print(f"  tuner on each of the {n} chunks: decisions equal to the host engine's "
+              f"({len(picks)} distinct: {sorted(picks)}); device {dev_s:.4f} s, host engine "
+              f"{host_s:.4f} s in all", flush=True)
 
     # BIOMD and BIOMDXTC on a water-like trajectory of the ApoA1 system's
-    # atoms, and the same with a tail of fill frames
+    # atoms, and a shorter one with a tail of fill frames (its depth cut to
+    # keep the script's time)
     t = time.perf_counter()
     trajs = {"": md_traj(TRAJ_FRAMES, TRAJ_ATOMS, seed=0),
-             ", 100 fill frames": md_traj(TRAJ_FRAMES, TRAJ_ATOMS, seed=2, fill_tail=100)}
-    print(f"trajectories {TRAJ_FRAMES} x {TRAJ_ATOMS} x 3: {time.perf_counter() - t:.2f} s",
+             ", 100 fill frames": md_traj(FILL_FRAMES, TRAJ_ATOMS, seed=2, fill_tail=100)}
+    print(f"trajectories {TRAJ_FRAMES} and {FILL_FRAMES} x {TRAJ_ATOMS} x 3: "
+          f"{time.perf_counter() - t:.2f} s",
           flush=True)
     for traj in trajs.values():      # three-site water, as the reference detects it
         check(bd.cal_site(traj[1]) == 3, f"trajectory site {bd.cal_site(traj[1])}, not 3")
@@ -1699,7 +1807,7 @@ def main() -> int:
             biomd = algo == szp.ALGO.BIOMD
             want = {"biomd_frames": 1} if biomd else {}
             # the stages of the case with fill frames are those of the first
-            _, got = case6(f"{algo.name} {TRAJ_FRAMES}x{TRAJ_ATOMS}x3{tag}", traj,
+            _, got = case6(f"{algo.name} {traj.shape[0]}x{TRAJ_ATOMS}x3{tag}", traj,
                            lambda algo=algo: conf6(algo), None if tag else enc_spec,
                            None if tag else dec_spec,
                            {"enc": lambda s, want=want: s == want,
@@ -1708,6 +1816,7 @@ def main() -> int:
                            capture=[(bd, "frames_encode"), (bd, "frames_recover")]
                            if biomd and not tag else None, rest=(True, True))
             bio_args.update(got)
+    water = trajs[""]           # phase 7 compresses it with MDZ
     del trajs
 
     # the recurrence at the main path's shape: kernel against plain, bit for
@@ -1767,6 +1876,193 @@ def main() -> int:
     print(f"phase 6 launches {p6_launches}", flush=True)
     for k in ("hist_literals", "pack_bits", "huff_scan", "huff_write", "biomd_frames"):
         check(p6_launches[k] >= 1, f"kernel {k} was not launched in phase 6")
+    stamp("phase 6 done")
+
+    # ---- phase 7: MDZ ------------------------------------------------------------------
+    # sz3_tpu_torch.mdz on the card against the host engine's szt_mdz_compress /
+    # szt_mdz_decompress: archives sha256-equal, decodes bit-equal and within
+    # the bound, each side decoding the other's archive; mdz_frames' launches
+    # counted over these calls alone
+    p7_launches = {"mdz_frames": 0}
+
+    def drive7(fn):
+        md.mdz_frames.launches = 0
+        out = sync_time(fn)
+        seen = md.mdz_frames.launches
+        p7_launches["mdz_frames"] += seen
+        return out, seen
+
+    mdz_enc_stages = [(mdz_torch, "mdz_levels", "levels"), (mdz_torch, "_select", "select trials"),
+                      (md, "exaalt_encode", "VQ/VQT sweeps"), (md, "mt_encode", "MT sweeps"),
+                      (mdz_torch, "_exaalt_seal", "host seals"),
+                      (mdz_torch, "_ts_seal", "host seals"),
+                      (mdz_torch, "lammps_compress", "host LR/TS"),
+                      (mdz_torch, "to_host", "D2H copies"), (mdz_torch, "upload", "H2D copies")]
+    mdz_dec_stages = [(mdz_torch, "_exaalt_open", "host opens"),
+                      (mdz_torch, "_ts_open", "host opens"),
+                      (md, "exaalt_decode", "VQ/VQT sweeps"), (md, "mt_decode", "MT sweeps"),
+                      (mdz_torch, "lammps_decompress", "host LR/TS"),
+                      (mdz_torch, "upload", "H2D copies")]
+
+    def mdz_methods(blob):
+        """The method of each batch, a list per axis."""
+        def one(b):
+            pos = 6 + 8 * b[5] + 9 + 16
+            used = b[pos]
+            pos += 1
+            if used:
+                pos += 8 + struct.unpack_from("<Q", b, pos)[0]
+            nb = struct.unpack_from("<I", b, pos)[0]
+            return [mdz.METHOD_NAMES[b[pos + 4 + 29 * i]] for i in range(nb)]
+
+        if blob[:4] == b"MDZ1":
+            return [one(blob)]
+        out, pos = [], 29
+        for _ in range(struct.unpack_from("<Q", blob, 21)[0]):
+            ln = struct.unpack_from("<Q", blob, pos)[0]
+            out.append(one(blob[pos + 8:pos + 8 + ln]))
+            pos += 8 + ln
+        return out
+
+    def case7(label, data, kw, capture=False):
+        """One MDZ case: the engine's archive and decode, the port's cold and
+        warm compress and decompress on the card, checked equal; walls,
+        peaks, methods, launches and stages. Returns the captured arguments
+        of the recurrence's wrappers (with `capture`)."""
+        method = kw.get("method", "ADP")
+        eng = (kw.get("abs_eb"), kw.get("rel_eb"), kw.get("batch_size", 0), mdz.METHODS[method],
+               1024)
+        blob_native, native_enc_s = sync_time(lambda: mdz.engine_compress(data, *eng))
+        ref_out, native_dec_s = sync_time(lambda: mdz.engine_decompress(blob_native))
+        sha_native = hashlib.sha256(blob_native).hexdigest()
+        grabbed = {}
+        with contextlib.ExitStack() as stack:
+            if capture:
+                for name in ("frames_encode", "frames_recover"):
+                    grabbed[name] = stack.enter_context(captured(md, name))
+            (blob_cold, enc_cold_s), seen_c = drive7(
+                lambda: mdz.mdz_compress(data, device="cuda", **kw))
+            (out, dec_s), seen_dc = drive7(lambda: mdz.mdz_decompress(blob_native, device="cuda"))
+        del out
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (blob_warm, enc_warm_s), seen_e = drive7(
+            lambda: mdz.mdz_compress(data, device="cuda", **kw))
+        enc_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, dec_warm_s), seen_d = drive7(lambda: mdz.mdz_decompress(blob_native, device="cuda"))
+        dec_peak = torch.cuda.max_memory_allocated() - held
+        for tag, b in (("cold", blob_cold), ("warm", blob_warm)):
+            check(hashlib.sha256(b).hexdigest() == sha_native,
+                  f"{label} {tag} archive sha256 differs from the host engine's")
+        out_np = out.cpu().numpy()
+        check(out_np.shape == ref_out.shape and out_np.tobytes() == ref_out.tobytes(),
+              f"{label}: decode not bit-equal to the host engine's")
+        check(mdz.engine_decompress(blob_warm).tobytes() == out_np.tobytes(),
+              f"{label}: the engine's decode of the port's archive differs from the card's")
+        span = float(data.max()) - float(data.min())
+        bound_eb = kw["abs_eb"] if "abs_eb" in kw else kw["rel_eb"] * span * (1 + 1e-6)
+        err = float(np.abs(out_np.astype(np.float64) - data.astype(np.float64)).max())
+        check(err <= bound_eb, f"{label}: max error {err} > {bound_eb}")
+        methods = mdz_methods(blob_native)
+        recurrent = any(m in ("VQT", "MT") for axis in methods for m in axis)
+        check(method == "VQ" or seen_e >= 1, f"{label}: compress launched mdz_frames {seen_e} "
+                                              f"times")
+        check(not recurrent or seen_d >= 1, f"{label}: decompress launched mdz_frames {seen_d} "
+                                            f"times")
+        mb = data.nbytes / 1e6
+        print(f"{label} ({mb:.0f} MB {data.dtype}, {kw}, ratio {data.nbytes / len(blob_cold):.2f}): "
+              f"archive sha256 == host engine {sha_native[:16]}; decode bit-equal; each side "
+              f"decodes the other's archive; max err {err:.3e} (bound {bound_eb:.3e})", flush=True)
+        print(f"  methods per batch: " + "; ".join(f"axis {k}: {' '.join(a)}"
+                                                for k, a in enumerate(methods)), flush=True)
+        print(f"  encode wall: port cold {enc_cold_s:.3f} s, port warm {enc_warm_s:.3f} s "
+              f"({mb / enc_warm_s / 1e3:.3f} GB/s), host engine {native_enc_s:.3f} s", flush=True)
+        print(f"  decode wall: port first {dec_s:.3f} s, port warm {dec_warm_s:.3f} s "
+              f"({mb / dec_warm_s / 1e3:.3f} GB/s), host engine {native_dec_s:.3f} s; mdz_frames "
+              f"launches: compress {seen_c} / {seen_e} (cold / warm), decompress {seen_dc} / "
+              f"{seen_d}", flush=True)
+        print(f"  peak device memory above what was held before the call: warm compress "
+              f"{enc_peak / 2**30:.3f} GiB ({enc_peak / data.nbytes:.2f} bytes a series byte), "
+              f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f})",
+              flush=True)
+        del out, out_np
+        # the select trials hold their own sweeps, seals and copies
+        staged("encode stages", mdz_enc_stages,
+               lambda: mdz.mdz_compress(data, device="cuda", **kw), False)
+        staged("decode stages", mdz_dec_stages,
+               lambda: mdz.mdz_decompress(blob_native, device="cuda"), True)
+        torch.cuda.empty_cache()
+        stamp(f"{label} done")
+        return {k: v.get("args") for k, v in grabbed.items()}
+
+    # a lattice trajectory of the ApoA1 system's atom count: atoms vibrating
+    # around levels 1.5 apart (noise 0.05), the port's counterpart of
+    # tests/test_mdz.py::lattice_traj, as solid-state MD of the EXAALT kind
+    t = time.perf_counter()
+    rng_l = np.random.default_rng(0)
+    lattice = (rng_l.integers(0, 12, (TRAJ_ATOMS, 3)) * 1.5
+               + rng_l.normal(0, 0.05, (TRAJ_FRAMES, TRAJ_ATOMS, 3))).astype(np.float32)
+    print(f"lattice trajectory {TRAJ_FRAMES} x {TRAJ_ATOMS} x 3: {time.perf_counter() - t:.2f} s",
+          flush=True)
+    case7(f"MDZ ADP {TRAJ_FRAMES}x{TRAJ_ATOMS}x3 lattice", lattice,
+          dict(rel_eb=1e-3, batch_size=100))
+    head = np.ascontiguousarray(lattice[:100])
+    mdz_args = {}
+    for method in ("VQ", "VQT", "MT"):
+        got = case7(f"MDZ {method} 100x{TRAJ_ATOMS}x3 lattice", head,
+                    dict(rel_eb=1e-3, method=method), capture=method == "VQT")
+        mdz_args.update({k: v for k, v in got.items() if v is not None})
+    del lattice, head
+    case7(f"MDZ ADP {TRAJ_FRAMES}x{TRAJ_ATOMS}x3 water-like", water,
+          dict(rel_eb=1e-3, batch_size=100))
+    del water
+
+    # the recurrence on the path's own input (the VQT case's last axis):
+    # kernel against plain, bit for bit, and timed (plain, kernel, kernel,
+    # plain; the plain loop once)
+    check(set(mdz_args) == {"frames_encode", "frames_recover"},
+          f"the VQT case did not run the recurrence both ways: {sorted(mdz_args)}")
+    mx, mr0, meb, mrad = mdz_args["frames_encode"]
+    mb, mlits, mstarts, _, _, _ = mdz_args["frames_recover"]
+    err_e = max_abs_diff(md.frames_encode(mx, mr0, meb, mrad),
+                         md.frames_encode_plain(mx, mr0, meb, mrad))
+    err_r = max_abs_diff(
+        md.frames_recover(mb, mlits, mstarts, mr0, meb, mrad).view(torch.int32),
+        md.frames_recover_plain(mb, mlits, mstarts, mr0, meb, mrad).view(torch.int32))
+    check(err_e == 0 and err_r == 0,
+          f"mdz_frames on the path's input differs from its plain version ({err_e}, {err_r})")
+    mdz_err = max(mdz_err, err_e, err_r)
+    mfe_ms, mfe_plain_ms, mfe_runs = paired_ms(
+        lambda: md.frames_encode(mx, mr0, meb, mrad),
+        lambda: md.frames_encode_plain(mx, mr0, meb, mrad), plain_reps=1)
+    mfr_ms, mfr_plain_ms, mfr_runs = paired_ms(
+        lambda: md.frames_recover(mb, mlits, mstarts, mr0, meb, mrad),
+        lambda: md.frames_recover_plain(mb, mlits, mstarts, mr0, meb, mrad), plain_reps=1)
+    # the pass that a kernel writing frame-major bins would need after it
+    tr_ms = event_ms(lambda: mb.t().contiguous())
+    mcells = mx.numel()
+    # encode: the frames read and the bins written, frame 0's reconstruction
+    # read; recover: the bins, this run's literals (one a zero bin), each
+    # atom's literal slot and frame 0 read, the reconstruction written.
+    # Operations: some 20 a cell to quantize, 6 to recover
+    mfe_bound = bound(8 * mcells + 4 * mr0.numel(), 20 * mcells)
+    mfr_bound = bound(8 * mcells + 4 * mlits.numel() + 12 * mr0.numel(), 6 * mcells)
+    print(f"mdz_frames at {tuple(mx.shape)} (the VQT case's input, {mlits.numel()} literals): "
+          f"bit-equal to plain; recover kernel {mfr_ms:.4f} ms, plain {mfr_plain_ms:.2f} ms "
+          f"({[round(v, 4) for v in mfr_runs]}), bound {mfr_bound[0]:.5f} ms by {mfr_bound[1]}; encode kernel {mfe_ms:.4f} ms, plain "
+          f"{mfe_plain_ms:.2f} ms ({[round(v, 4) for v in mfe_runs]}), bound {mfe_bound[0]:.5f} ms "
+          f"by {mfe_bound[1]}; one launch a call (the plain loop some {25 * mx.shape[0]} PyTorch "
+          f"calls); no PyTorch call computes it; the bins are written in the archive's (atom, "
+          f"frame) order: the transpose of frame-major bins that it saves takes {tr_ms:.4f} ms",
+          flush=True)
+    del mdz_args, mx, mr0, mb, mlits, mstarts
+    print(f"phase 7 launches {p7_launches}", flush=True)
+    check(p7_launches["mdz_frames"] >= 1, "kernel mdz_frames was not launched in phase 7")
+    stamp("phase 7 done")
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
@@ -1775,8 +2071,8 @@ def main() -> int:
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"sz3_tpu_torch/csrc/{source}",
                 "replaces": replaces, **extra,
-                "launches": next(d[name] for d in (launches, lr_launches, p6_launches)
-                                 if name in d),
+                "launches": next(d[name] for d in (launches, lr_launches, p6_launches,
+                                                   p7_launches) if name in d),
                 "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
@@ -1801,10 +2097,16 @@ def main() -> int:
             also_replaces="sz3_tpu/ops/biomd_device.py:95", encode_ms=bfe_ms,
             encode_plain_ms=bfe_plain_ms, encode_bound_ms=bfe_bound[0],
             encode_bound_by=bfe_bound[1]),
+        row("mdz_frames", "mdz_frames.cu", "sz3_tpu/ops/mdz_device.py:124", mdz_err,
+            mfr_ms, mfr_plain_ms, mfr_bound, None,
+            also_replaces="sz3_tpu/ops/mdz_device.py:110", encode_ms=mfe_ms,
+            encode_plain_ms=mfe_plain_ms, encode_bound_ms=mfe_bound[0],
+            encode_bound_by=mfe_bound[1], transpose_ms=tr_ms),
     ]
     for r in kernels:
         r["lorenzo_reg_launches"] = lr_launches.get(r["name"], 0)
         r["phase6_launches"] = p6_launches.get(r["name"], 0)
+        r["phase7_launches"] = p7_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

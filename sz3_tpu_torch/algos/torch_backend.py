@@ -3,10 +3,12 @@
 The device runs the prediction+quantization of INTERP (the multi-level
 passes), of LORENZO_REG (fits, selection and the element sweep), of NOPRED
 (one quantize against zero), of BIOMD (frames after the first, the frame
-recurrence) and of BIOMDXTC (one quantize at the XTC radius), the Huffman
+recurrence) and of BIOMDXTC (one quantize at the XTC radius), the
+INTERP_LORENZO tuner's trial encodes (algos/tuner.py), the Huffman
 histogram and bit packing of the encode (algos/device_encode.py) and the
 Huffman decode (algos/device_decode.py). The package's host engine
-(runtime.py) tunes, builds the Huffman tree, replays LORENZO_REG's
+(runtime.py) seals the tuner's trials and tunes 1D and integer fields,
+builds the Huffman tree, replays LORENZO_REG's
 coefficient chain, runs BIOMD's first frame and its HuffmanV2 coder and the
 XTC triplet coder, and does the framing and zstd. Archives are
 byte-identical to the host engine's. OpenMP-format archives (conf.openmp)
@@ -47,7 +49,7 @@ from ..config import ALGO, Config
 from ..ops import biomd_device as bd
 from ..parallel import chunked
 from ..stats import cal_abs_error_bound
-from . import device_decode, device_encode
+from . import device_decode, device_encode, tuner
 
 _FLOATS = (np.float32, np.float64)
 
@@ -144,7 +146,8 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: tor
     if conf.absErrorBound == 0:
         conf.cmprAlgo = ALGO.LOSSLESS
     if conf.cmprAlgo == ALGO.INTERP_LORENZO:
-        runtime.tune_interp(conf, data)
+        if not tuner.tune(conf, data, device):     # trials on the device
+            runtime.tune_interp(conf, data)        # the engine's (1D, integer dtypes)
     if conf.cmprAlgo == ALGO.LOSSLESS:
         return runtime.zstd_compress(data.tobytes())
     route = _encode_route(conf, data)

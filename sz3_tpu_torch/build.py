@@ -164,6 +164,9 @@ def kernels() -> C.CDLL:
         lib.szt_biomd_frames.restype = i32
         lib.szt_biomd_frames.argtypes = [p, p, p, p, i64, i32, i32, i32, C.c_double, C.c_double,
                                          i32, i32, p]
+        lib.szt_mdz_frames.restype = i32
+        lib.szt_mdz_frames.argtypes = [p, p, i64, p, p, p, i64, i32, C.c_double, C.c_double,
+                                       i32, i32, p]
         _lib = lib
     return _lib
 

@@ -24,10 +24,10 @@
 // Bit-exactness. Built with -fmad=false (build.py): the f32 (a + b) - c and
 // the f64 pred + q*eb round once per operation, as the host engine's
 // -ffp-contract=off build and the plain versions do. The quantizer clamps
-// |diff| / eb at 2*radius before the int cast, so NaN and values of 2^31
-// and above never reach an undefined conversion; such a cell fails the
-// error test and becomes a literal, as in the engine. 2 * (bin - radius)
-// wraps in int32 as PyTorch's does.
+// |diff| / eb at 2*radius before the int cast, so no value reaches an
+// undefined conversion; a quotient that is NaN or 2^63 and above takes what
+// the engine's int64 cast gives on x86 (INT64_MIN), and the error test alone
+// decides it. 2 * (bin - radius) wraps in int32 as PyTorch's does.
 
 #include <cuda_runtime.h>
 
@@ -51,16 +51,19 @@ __device__ __forceinline__ int quantize(float data, float pred, float& rec, doub
                                         double recip, int radius) {
     const float diff = data - pred;
     const double scaled = static_cast<double>(fabsf(diff)) * recip;
+    // the engine's int64 cast: NaN and quotients of 2^63 and above give
+    // INT64_MIN, so half is 0, q is -2^63 and only the error test decides
+    const bool wild = !(scaled < 9223372036854775808.0);
     const double cap = 2.0 * radius;
-    const int qi = static_cast<int>(scaled < cap ? scaled : cap) + 1;
+    const int qi = wild ? 1 : static_cast<int>(scaled < cap ? scaled : cap) + 1;
     const int half = qi >> 1;
     const int qeven = half << 1;
     const bool neg = diff < 0.0f;
-    const int q = neg ? -qeven : qeven;
+    const double q = wild ? -9223372036854775808.0 : static_cast<double>(neg ? -qeven : qeven);
     const int shifted = neg ? radius - half : radius + half;
-    const float dec = static_cast<float>(static_cast<double>(pred) + static_cast<double>(q) * eb);
+    const float dec = static_cast<float>(static_cast<double>(pred) + q * eb);
     const double err = fabs(static_cast<double>(dec - data));
-    const bool ok = qi < 2 * radius && err <= eb;
+    const bool ok = (wild || qi < 2 * radius) && err <= eb;
     rec = ok ? dec : data;
     return ok ? shifted : 0;
 }

@@ -136,16 +136,19 @@ __global__ void __launch_bounds__(kThreads) sweep_plane(SweepArgs a, int t, int 
     const float data = a.vals[cell];
     const float diff = data - pred;
     const double scaled = static_cast<double>(fabsf(diff)) * a.recip;
+    // the engine's int64 cast: NaN and quotients of 2^63 and above give
+    // INT64_MIN, so half is 0, q is -2^63 and only the error test decides
+    const bool wild = !(scaled < 9223372036854775808.0);
     const double cap = 2.0 * a.radius;
-    const int qi = static_cast<int>(scaled < cap ? scaled : cap) + 1;
+    const int qi = wild ? 1 : static_cast<int>(scaled < cap ? scaled : cap) + 1;
     const int half = qi >> 1;
     const int qeven = half << 1;
     const bool neg = diff < 0.0f;
-    const int q = neg ? -qeven : qeven;
+    const double q = wild ? -9223372036854775808.0 : static_cast<double>(neg ? -qeven : qeven);
     const int shifted = neg ? a.radius - half : a.radius + half;
-    const float dec = static_cast<float>(static_cast<double>(pred) + static_cast<double>(q) * a.eb);
+    const float dec = static_cast<float>(static_cast<double>(pred) + q * a.eb);
     const double err = fabs(static_cast<double>(dec - data));
-    const bool ok = qi < 2 * a.radius && err <= a.eb;
+    const bool ok = (wild || qi < 2 * a.radius) && err <= a.eb;
     a.ints[cell] = ok ? shifted : 0;
     *r = ok ? dec : data;
 }

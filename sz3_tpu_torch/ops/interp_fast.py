@@ -20,6 +20,7 @@ import dataclasses
 import itertools
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 from .interp_plan import (K_CUBIC, K_LIN1_NEW, K_LIN1_OLD, K_LINEAR, K_QUAD1, K_QUAD2, K_QUAD3,
                           direction_table, level_eb)
 from .quantize import quantize, recover
+from .stream_order import cache_device
 
 
 def _grid_count(D: int, step: int) -> int:
@@ -59,6 +61,17 @@ class FastPlan:
     radius: int
     passes: Tuple[FastPass, ...]
     init_steps: Tuple[int, ...]  # strides of the initial coarse grid
+
+    def __post_init__(self):
+        # derived once a plan, and not fields, so that a plan stays the JAX
+        # package's field for field: each pass's kinds, and the key of its
+        # device constants (_consts)
+        object.__setattr__(self, "present", tuple(frozenset(np.unique(spec.kind).tolist())
+                                                  for spec in self.passes))
+        object.__setattr__(self, "consts_key", tuple(
+            (spec.kind.shape, np.ascontiguousarray(spec.kind, np.int32).tobytes(),
+             np.asarray(spec.eb, np.float64).tobytes() if isinstance(spec.eb, tuple) else None)
+            for spec in self.passes))
 
 
 def build_fast_plan(dims: Tuple[int, ...], *, interp_algo: int, direction: int,
@@ -134,22 +147,79 @@ def from_jax_plan(plan) -> FastPlan:
                     init_steps=tuple(plan.init_steps))
 
 
+def stack_plans(plans) -> FastPlan:
+    """Plans of one pass structure (the tuner's trials of one stage, which
+    differ in their kinds or in their level bounds) as one plan over a
+    leading trial axis: each pass's kinds stacked (T, P), its bound a float
+    where the trials share it and else a tuple of T, its stage 2 where any
+    trial has one (a trial without it never matches K_LIN1_NEW)."""
+    p0 = plans[0]
+
+    def shape_of(p):
+        return (p.dims, p.anchor_stride, p.base_eb, p.radius, p.init_steps,
+                [(s.level, s.dd, s.src_steps, s.out_steps, s.cur_start, s.cur_steps, s.shape_in,
+                  s.shape_out, s.p) for s in p.passes])
+
+    if any(shape_of(p) != shape_of(p0) for p in plans):
+        raise ValueError("stacked plans must share their pass structure")
+    passes = []
+    for k, spec in enumerate(p0.passes):
+        ebs = tuple(p.passes[k].eb for p in plans)
+        passes.append(dataclasses.replace(
+            spec, kind=np.stack([p.passes[k].kind for p in plans]),
+            eb=ebs[0] if len(set(ebs)) == 1 else ebs,
+            has_stage2=any(p.passes[k].has_stage2 for p in plans)))
+    return dataclasses.replace(p0, passes=tuple(passes))
+
+
 # ---- one pass -----------------------------------------------------------------
 
-def _shifts(coarse: torch.Tensor, spec: FastPass):
+def _shifts(coarse: torch.Tensor, spec: FastPass, lead: int = 0):
     """A[j-2..j+2] for the odd positions j = 0..P-1, with the coarse array
-    edge-padded by 2 along the pass axis."""
-    dd = spec.dd
+    edge-padded by 2 along the pass axis. `lead` leading axes (a batch of
+    grids) come before the grid's own."""
+    dd = spec.dd + lead
     first = coarse.narrow(dd, 0, 1)
     last = coarse.narrow(dd, coarse.shape[dd] - 1, 1)
     apad = torch.cat([first, first, coarse, last, last], dim=dd)
     return [apad.narrow(dd, 2 + d, spec.p) for d in (-2, -1, 0, 1, 2)]
 
 
-def _kindvec(spec: FastPass, ndim: int, device) -> torch.Tensor:
+@lru_cache(maxsize=16)
+def _consts_on(key, device: torch.device):
+    if not key:
+        return []
+    kinds = np.concatenate([np.frombuffer(k, np.int32) for _, k, _ in key])
+    kinds = torch.split(torch.from_numpy(kinds).to(device), [len(k) // 4 for _, k, _ in key])
+    ebs = [np.frombuffer(e, np.float64) for _, _, e in key if e is not None]
+    ebs = iter(torch.split(torch.from_numpy(np.concatenate(ebs)).to(device),
+                           [e.size for e in ebs]) if ebs else ())
+    return [(k.reshape(shape), None if e is None else next(ebs))
+            for k, (shape, _, e) in zip(kinds, key)]
+
+
+def _consts(plan: FastPlan, device):
+    """Every pass's (kind vector, bounds) on `device`, the bounds None but
+    in a stacked plan's passes whose trials bound them apart; one copy each
+    and cached by the plan's content: a copy from pageable memory waits for
+    the device, so one a pass would hold the host back at every pass."""
+    return _consts_on(plan.consts_key, cache_device(device))
+
+
+def _kindvec(kind: torch.Tensor, spec: FastPass, ndim: int, lead: int = 0) -> torch.Tensor:
+    """The kind vector shaped to broadcast along the pass axis; a stacked
+    plan's (T, P) kinds also along the trial axis, the first."""
     shape = [1] * ndim
-    shape[spec.dd] = -1
-    return torch.as_tensor(spec.kind, device=device).reshape(shape)
+    shape[spec.dd + lead] = -1
+    if kind.dim() == 2:
+        shape[0] = kind.shape[0]
+    return kind.reshape(shape)
+
+
+def _pass_eb(spec: FastPass, ebs, ndim: int):
+    """The pass's bound: a float, or a stacked plan's bounds, one a trial,
+    shaped to broadcast along the trial axis."""
+    return spec.eb if ebs is None else ebs.reshape((-1,) + (1,) * (ndim - 1))
 
 
 def _linear1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -157,19 +227,21 @@ def _linear1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (-0.5 * a.to(torch.float64) + 1.5 * b.to(torch.float64)).to(a.dtype)
 
 
-def _predict_kinds(kind, m2, m1, z0, p1, p2):
-    """Every basis function from the five shifts, then the per-position kind
-    select; op order as in Interpolators.hpp:12-39."""
-    cubic = (-m1 + 9 * z0 + 9 * p1 - p2) / 16
-    quad1 = (3 * z0 + 6 * p1 - p2) / 8
-    quad2 = (-m1 + 6 * z0 + 3 * p1) / 8
-    quad3 = (3 * m2 - 10 * m1 + 15 * z0) / 8
-    linear = (z0 + p1) / 2
-    lin1_old = _linear1(m1, z0)
+def _predict_kinds(present, kind, m2, m1, z0, p1, p2):
+    """The basis functions of the kinds `present` in this pass, from the
+    five shifts, then the per-position kind select; op order as in
+    Interpolators.hpp:12-39. A kind the pass lacks is neither computed nor
+    selected (each op is a launch on the device)."""
+    basis = {K_LIN1_OLD: lambda: _linear1(m1, z0),
+             K_LINEAR: lambda: (z0 + p1) / 2,
+             K_QUAD3: lambda: (3 * m2 - 10 * m1 + 15 * z0) / 8,
+             K_QUAD2: lambda: (-m1 + 6 * z0 + 3 * p1) / 8,
+             K_QUAD1: lambda: (3 * z0 + 6 * p1 - p2) / 8,
+             K_CUBIC: lambda: (-m1 + 9 * z0 + 9 * p1 - p2) / 16}
     pred = z0  # K_COPY; K_LIN1_NEW is fixed up in stage 2
-    for k, v in ((K_LIN1_OLD, lin1_old), (K_LINEAR, linear), (K_QUAD3, quad3),
-                 (K_QUAD2, quad2), (K_QUAD1, quad1), (K_CUBIC, cubic)):
-        pred = torch.where(kind == k, v, pred)
+    for k, v in basis.items():
+        if k in present:
+            pred = v() if present == {k} else torch.where(kind == k, v(), pred)
     return pred
 
 
@@ -187,36 +259,39 @@ def _interleave(a: torch.Tensor, r: torch.Tensor, dd: int, g_out: int) -> torch.
     return z.narrow(dd, 0, g_out) if 2 * c != g_out else z
 
 
-def _stage2_fix(spec: FastPass, kind, a, pred, recon_s1):
+def _stage2_fix(spec: FastPass, kind, a, pred, recon_s1, lead: int = 0):
     """Linear-mode block tails read the reconstruction of the previous odd
     point of the same pass: pred = f32(-0.5*recon[j-1] + 1.5*A[j])
     (InterpolationDecomposition.hpp:341-350)."""
-    dd = spec.dd
+    dd = spec.dd + lead
     prev = torch.cat([recon_s1.narrow(dd, 0, 1), recon_s1], dim=dd).narrow(dd, 0, spec.p)
     return torch.where(kind == K_LIN1_NEW, _linear1(prev, a), pred)
 
 
-def encode_pass_fast(cur: torch.Tensor, coarse: torch.Tensor, spec: FastPass, radius: int):
-    """cur: original values at this pass's predicted (odd) positions.
-    Returns (the next-resolution array, this pass's bins)."""
-    m2, m1, z0, p1, p2 = _shifts(coarse, spec)
-    kind = _kindvec(spec, coarse.ndim, coarse.device)
-    pred = _predict_kinds(kind, m2, m1, z0, p1, p2)
-    bins, recon = quantize(cur, pred, spec.eb, radius)
+def encode_pass_fast(cur: torch.Tensor, coarse: torch.Tensor, spec: FastPass, radius: int,
+                     kind: torch.Tensor, present, eb, lead: int = 0):
+    """cur: original values at this pass's predicted (odd) positions; kind:
+    the pass's kind vector on the device and `present` its kinds (_consts,
+    FastPlan.present); eb: the pass's bound (_pass_eb). Returns (the
+    next-resolution array, this pass's bins)."""
+    m2, m1, z0, p1, p2 = _shifts(coarse, spec, lead)
+    kind = _kindvec(kind, spec, coarse.ndim, lead)
+    pred = _predict_kinds(present, kind, m2, m1, z0, p1, p2)
+    bins, recon = quantize(cur, pred, eb, radius)
     if spec.has_stage2:
-        pred2 = _stage2_fix(spec, kind, z0, pred, recon)
-        bins2, recon2 = quantize(cur, pred2, spec.eb, radius)
+        pred2 = _stage2_fix(spec, kind, z0, pred, recon, lead)
+        bins2, recon2 = quantize(cur, pred2, eb, radius)
         m = kind == K_LIN1_NEW
         bins = torch.where(m, bins2, bins)
         recon = torch.where(m, recon2, recon)
-    return _interleave(coarse, recon, spec.dd, spec.shape_out[spec.dd]), bins
+    return _interleave(coarse, recon, spec.dd + lead, spec.shape_out[spec.dd]), bins
 
 
 def decode_pass_fast(coarse: torch.Tensor, bins: torch.Tensor, literal: torch.Tensor,
-                     spec: FastPass, radius: int) -> torch.Tensor:
+                     spec: FastPass, radius: int, kind: torch.Tensor, present) -> torch.Tensor:
     m2, m1, z0, p1, p2 = _shifts(coarse, spec)
-    kind = _kindvec(spec, coarse.ndim, coarse.device)
-    pred = _predict_kinds(kind, m2, m1, z0, p1, p2)
+    kind = _kindvec(kind, spec, coarse.ndim)
+    pred = _predict_kinds(present, kind, m2, m1, z0, p1, p2)
     rec = recover(pred, bins, literal, spec.eb, radius)
     if spec.has_stage2:
         pred2 = _stage2_fix(spec, kind, z0, pred, rec)
@@ -227,35 +302,41 @@ def decode_pass_fast(coarse: torch.Tensor, bins: torch.Tensor, literal: torch.Te
 
 # ---- whole grid ---------------------------------------------------------------
 
-def _decimation_chain(x: torch.Tensor, plan: FastPlan):
+def _decimation_chain(x: torch.Tensor, plan: FastPlan, lead: int = 0):
     """(x on the initial grid, [x at pass k's predicted positions]) as
     strided views of x."""
     fine = [None] * len(plan.passes)
     cur_arr = x
     for k in range(len(plan.passes) - 1, -1, -1):
         fine[k] = cur_arr
-        dd = plan.passes[k].dd
+        dd = plan.passes[k].dd + lead
         cur_arr = cur_arr[tuple(slice(None, None, 2) if a == dd else slice(None)
                                 for a in range(x.ndim))]
-    curs = [fine[k][tuple(slice(1, None, 2) if a == spec.dd else slice(None)
+    curs = [fine[k][tuple(slice(1, None, 2) if a == spec.dd + lead else slice(None)
                           for a in range(x.ndim))]
             for k, spec in enumerate(plan.passes)]
     return cur_arr, curs
 
 
-def encode_grid_fast(x: torch.Tensor, plan: FastPlan):
-    """Original grid -> (per-pass bins, first-point bin or None, reconstruction)."""
-    coarse, curs = _decimation_chain(x, plan)
+def encode_grid_fast(x: torch.Tensor, plan: FastPlan, lead: int = 0):
+    """Original grid -> (per-pass bins, first-point bin or None, reconstruction).
+    With `lead`, x is a batch of grids on its first `lead` axes, each encoded
+    on its own (the tuner's trial blocks), and b0 holds one bin a grid. A
+    stacked plan (stack_plans) encodes trial t's grids along x's first axis,
+    which has one entry a trial."""
+    coarse, curs = _decimation_chain(x, plan, lead)
     bins_out = []
     b0 = None
     if plan.anchor_stride == 0:
-        i0 = (0,) * x.ndim
+        i0 = (slice(None),) * lead + (0,) * (x.ndim - lead)
         b0, r0 = quantize(x[i0], torch.zeros((), dtype=x.dtype, device=x.device),
                           plan.base_eb, plan.radius)
         coarse = coarse.clone()  # a view of x
         coarse[i0] = r0
-    for spec, cur in zip(plan.passes, curs):
-        coarse, b = encode_pass_fast(cur, coarse, spec, plan.radius)
+    for spec, cur, present, (kind, ebs) in zip(plan.passes, curs, plan.present,
+                                               _consts(plan, x.device)):
+        coarse, b = encode_pass_fast(cur, coarse, spec, plan.radius, kind, present,
+                                     _pass_eb(spec, ebs, x.ndim), lead)
         bins_out.append(b)
     return bins_out, b0, coarse
 
@@ -269,8 +350,9 @@ def decode_grid_fast(bins_list, literal_list, plan: FastPlan, lit0: torch.Tensor
         i0 = (0,) * coarse.ndim
         coarse[i0] = recover(torch.zeros((), dtype=dtype, device=coarse.device), b0,
                              lit0[i0], plan.base_eb, plan.radius)
-    for spec, b, lit in zip(plan.passes, bins_list, literal_list):
-        coarse = decode_pass_fast(coarse, b, lit, spec, plan.radius)
+    for spec, b, lit, present, (kind, _) in zip(plan.passes, bins_list, literal_list,
+                                                plan.present, _consts(plan, coarse.device)):
+        coarse = decode_pass_fast(coarse, b, lit, spec, plan.radius, kind, present)
     return coarse
 
 
@@ -281,14 +363,16 @@ def _pass_index(spec: FastPass):
                  for a in range(len(spec.cur_start)))
 
 
-def bins_to_grid(bins_list, plan: FastPlan, b0, device) -> torch.Tensor:
+def bins_to_grid(bins_list, plan: FastPlan, b0, device, batch: Tuple[int, ...] = ()
+                 ) -> torch.Tensor:
     """Per-pass bins -> the bins grid (anchors at bin 0), by strided slice
-    assignment."""
-    grid = torch.zeros(plan.dims, dtype=torch.int32, device=device)
+    assignment; with `batch`, the leading shape of a batch of grids."""
+    grid = torch.zeros(tuple(batch) + plan.dims, dtype=torch.int32, device=device)
+    lead = (slice(None),) * len(batch)
     if plan.anchor_stride == 0:
-        grid[(0,) * len(plan.dims)] = b0
+        grid[lead + (0,) * len(plan.dims)] = b0
     for spec, b in zip(plan.passes, bins_list):
-        grid[_pass_index(spec)] = b
+        grid[lead + _pass_index(spec)] = b
     return grid
 
 

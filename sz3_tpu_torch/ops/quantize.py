@@ -23,16 +23,21 @@ def quantize(data: torch.Tensor, pred: torch.Tensor, eb: float, radius: int):
     recip = 1.0 / eb
     diff = data - pred
     scaled = diff.abs().to(torch.float64) * recip
+    # the engine casts the quotient to int64, which gives INT64_MIN for NaN
+    # and quotients of 2^63 and above: then half is 0 (shifted = radius), q
+    # is -2^63 whatever the sign, and only the error test decides. That
+    # accepts +Inf data where eb is Inf (a REL bound over an infinite range)
+    wild = ~(scaled < 2.0 ** 63)
     # clamp before the int cast; anything at the clamp fails qi < 2*radius
-    qi = torch.clamp(scaled, max=float(2 * radius)).to(torch.int32) + 1
+    qi = torch.clamp(torch.where(wild, 0.0, scaled), max=float(2 * radius)).to(torch.int32) + 1
     half = qi >> 1
     qeven = half << 1
     neg = diff < 0
-    q = torch.where(neg, -qeven, qeven)
+    q = torch.where(wild, -2.0 ** 63, torch.where(neg, -qeven, qeven).to(torch.float64))
     shifted = torch.where(neg, radius - half, radius + half)
-    dec = (pred.to(torch.float64) + q.to(torch.float64) * eb).to(data.dtype)
+    dec = (pred.to(torch.float64) + q * eb).to(data.dtype)
     err = (dec - data).to(torch.float64).abs()
-    ok = (qi < 2 * radius) & (err <= eb)
+    ok = (wild | (qi < 2 * radius)) & (err <= eb)
     bins = torch.where(ok, shifted, 0).to(torch.int32)
     recon = torch.where(ok, dec, data)
     return bins, recon

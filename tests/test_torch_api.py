@@ -254,7 +254,7 @@ def test_nonfinite_and_subnormal_values():
 
 
 @pytest.mark.parametrize("algo", [ALGO.NOPRED, ALGO.BIOMDXTC, ALGO.BIOMD])
-def test_other_algorithms_raise(algo):
+def test_other_algorithms_round_trip(algo):
     """NOPRED, BIOMDXTC and BIOMD, which raised NotImplementedError before
     the port ran them, now round-trip: archives byte-equal to the engine's,
     decodes bit-equal (tests/test_torch_nopred.py, test_torch_xtc.py and
@@ -266,7 +266,7 @@ def test_other_algorithms_raise(algo):
     assert np.abs(_same_decode(blob).astype(np.float64) - x).max() <= 1e-3 * 1.2
 
 
-def test_openmp_raises():
+def test_openmp_round_trip():
     """An OpenMP-format archive (Config.openmp), which raised before the port
     ran it, now round-trips: byte-equal to the engine's at the same chunk
     count, given and by default (tests/test_torch_chunked.py holds the route

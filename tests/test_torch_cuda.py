@@ -537,3 +537,107 @@ def test_nopred_and_chunked_archives_on_the_card(dev, dtype):
         out, _ = szp.decompress(want, device=dev)
         ref = runtime.decompress_payload(*szp.open_archive(want))
         assert out.device.type == "cuda" and out.cpu().numpy().tobytes() == ref.tobytes()
+
+
+# ---- MDZ: the VQT / MT frame recurrence, and the device tuner ----------------------
+
+def _mdz_frames_case(frames, atoms, seed):
+    """Frames of atoms drifting around random levels with NaN, Inf,
+    subnormal and huge values, a frame-0 reconstruction, and bins (atom,
+    frame) across the quantizer's range."""
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(-5, 5, atoms)[None]
+         + np.cumsum(rng.normal(0, 0.01, (frames, atoms)), axis=0)).astype(np.float32)
+    flat = x[1:].reshape(-1)
+    flat[::97] = np.nan
+    flat[5::131] = np.inf
+    flat[7::137] = -np.inf
+    flat[11::139] = np.float32(3e-39)
+    flat[13::149] = np.float32(2.0 ** 40)
+    recon0 = x[0] + np.float32(1e-4)
+    bins = rng.integers(1, 2 * RADIUS, (atoms, frames - 1)).astype(np.int32)
+    bins[rng.random(bins.shape) < 0.05] = 0
+    return x[1:], recon0, bins
+
+
+@pytest.mark.parametrize("frames,atoms", [(2, 1), (9, 31), (100, 257), (33, 10001)])
+@pytest.mark.parametrize("eb", [1e-3, 1e-1, float("inf")])
+def test_mdz_frames_matches_plain(dev, frames, atoms, eb):
+    """Both forms of the kernel equal their plain versions bit for bit, on
+    special values, on bins across the range, and under an infinite bound;
+    one launch a call, which the plain versions do not count."""
+    from sz3_tpu_torch.ops import mdz_device as tmd
+
+    x, recon0, bins = _mdz_frames_case(frames, atoms, frames + atoms)
+    x, recon0, bins = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (x, recon0, bins))
+    before = tmd.mdz_frames.launches
+    bk = tmd.frames_encode(x, recon0, eb, RADIUS)
+    assert tmd.mdz_frames.launches == before + 1
+    assert torch.equal(bk, tmd.frames_encode_plain(x, recon0, eb, RADIUS))
+    for b in (bk, bins):
+        unpred = x.t().reshape(-1)[(b.reshape(-1) == 0).nonzero().reshape(-1)]
+        starts = tmd.literal_starts(b, unpred.numel())
+        rk = tmd.frames_recover(b, unpred, starts, recon0, eb, RADIUS)
+        rp = tmd.frames_recover_plain(b, unpred, starts, recon0, eb, RADIUS)
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert tmd.mdz_frames.launches == before + 3
+    tmd.frames_encode(x.cpu(), recon0.cpu(), eb, RADIUS)
+    assert tmd.mdz_frames.launches == before + 3
+
+
+def test_mdz_frames_reads_no_literal_past_its_buffer(dev):
+    """Literal slots past the literals read as NaN in the recover form, not
+    past the buffer."""
+    from sz3_tpu_torch.ops import mdz_device as tmd
+
+    x, recon0, bins = _mdz_frames_case(9, 300, 5)
+    x, recon0, bins = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (x, recon0, bins))
+    unpred = x.t().reshape(-1)[(bins.reshape(-1) == 0).nonzero().reshape(-1)]
+    starts = tmd.literal_starts(bins, unpred.numel()) + unpred.numel()
+    rk = tmd.frames_recover(bins, unpred, starts, recon0, 1e-3, RADIUS)
+    assert bool(torch.isnan(rk.t()[bins == 0]).all())
+
+
+@pytest.mark.parametrize("method,kw", [("VQT", dict(rel_eb=1e-3)), ("MT", dict(abs_eb=1e-3)),
+                                       ("ADP", dict(rel_eb=1e-3, batch_size=40)),
+                                       ("VQ", dict(rel_eb=1e-3)), ("LR", dict(rel_eb=1e-3))])
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_mdz_archives_on_the_card(dev, method, kw, ndim):
+    """MDZ archives written on the card equal the host engine's, and decode
+    on the card bit-equal to its decode; VQT and MT launch the recurrence."""
+    from sz3_tpu_torch import mdz as tmdz
+    from sz3_tpu_torch.ops import mdz_device as tmd
+
+    rng = np.random.default_rng(ndim)
+    shape = (120, 700) if ndim == 2 else (60, 300, 3)
+    levels = rng.integers(0, 12, shape[1:]) * 1.5
+    x = (levels[None] + rng.normal(0, 0.05, shape)).astype(np.float32)
+    want = tmdz.engine_compress(x, kw.get("abs_eb"), kw.get("rel_eb"), kw.get("batch_size", 0),
+                                tmdz.METHODS[method], 1024)
+    before = tmd.mdz_frames.launches
+    assert tmdz.mdz_compress(x, method=method, device=dev, **kw) == want
+    out = tmdz.mdz_decompress(want, device=dev)
+    assert out.device.type == "cuda"
+    assert out.cpu().numpy().tobytes() == tmdz.engine_decompress(want).tobytes()
+    if method in ("VQT", "MT"):
+        assert tmd.mdz_frames.launches >= before + 2
+
+
+@pytest.mark.parametrize("eb", [1e-2, 1e-4])
+def test_tuner_decisions_on_the_card(dev, eb):
+    """The device tuner's trials on the card take the host engine's
+    decisions on tests/test_tuner.py's fields."""
+    from test_tuner import FIELDS
+
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.algos import tuner
+
+    for name, data in FIELDS.items():
+        a = Config(dims=data.shape, cmprAlgo=ALGO.INTERP_LORENZO, absErrorBound=eb)
+        b = Config(dims=data.shape, cmprAlgo=ALGO.INTERP_LORENZO, absErrorBound=eb)
+        assert tuner.tune(a, data.copy(), dev)
+        runtime.tune_interp(b, data.copy())
+        for f in ("cmprAlgo", "interpAlgo", "interpDirection", "interpAlpha", "interpBeta"):
+            assert float(getattr(a, f)) == float(getattr(b, f)), (name, f)

@@ -48,6 +48,19 @@ for algo in (szp.ALGO.BIOMD, szp.ALGO.BIOMDXTC):
     b = szp.compress(traj, szp.Config(cmprAlgo=algo, absErrorBound=1e-3), device="cpu")
     o, c = szp.decompress(b, device="cpu")
     assert c.cmprAlgo == algo and float(np.abs(o.numpy() - traj).max()) <= 1.2e-3
+from sz3_tpu_torch import mdz
+lat = (rng.integers(0, 12, 150) * 1.5 + rng.normal(0, 0.05, (30, 150))).astype(np.float32)
+for method in ("ADP", "VQT", "MT"):
+    mb = mdz.mdz_compress(lat, rel_eb=1e-3, batch_size=10, method=method, device="cpu")
+    mo = mdz.mdz_decompress(mb, device="cpu").numpy()
+    assert mb == mdz.engine_compress(lat, None, 1e-3, 10, mdz.METHODS[method], 1024)
+    assert mo.tobytes() == mdz.engine_decompress(mb).tobytes()
+from sz3_tpu_torch.algos import tuner
+tuned = []
+real_tune = tuner.tune
+tuner.tune = lambda c, d, dev: tuned.append(d.shape) or real_tune(c, d, dev)
+tb = szp.compress(x, szp.Config(absErrorBound=1e-3), device="cpu")
+assert tuned == [x.shape] and szp.decompress(tb, device="cpu")[1].cmprAlgo == szp.ALGO.INTERP
 assert sys.modules["jax"] is None and sys.modules["sz3_tpu"] is None
 assert not [m for m in sys.modules if m.startswith("sz3_tpu.")]
 print("ok", len(blob))
