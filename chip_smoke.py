@@ -55,8 +55,9 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      of a warm encode and decode, and the busy share;
   6. the other archive forms, each against the host engine as in phase 5
      (archives sha256-equal, decodes bit-equal, launches counted over the
-     calls alone, walls cold and warm, stages with their device memory
-     peaks, the card's memory over the peak): NOPRED on nyx_like(512) f32
+     calls alone, walls cold and warm, the card's memory over the peak;
+     stages with their device memory peaks for NOPRED and the 8-chunk ABS
+     archive): NOPRED on nyx_like(512) f32
      and nyx_like(256) f64, with K1's window shares on its element-order
      stream; OpenMP-format archives of the default Config on nyx_like(512)
      in 8 chunks at ABS 1e-3 and REL 1e-3 and in 6 (ragged), each decoded
@@ -76,9 +77,27 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      frames with VQ, VQT and MT pinned, and phase 6's water-like trajectory
      under ADP; archives sha256-equal, decodes bit-equal and within the
      bound, each side decoding the other's archive; walls cold and warm,
-     stages, warm peaks, each batch's method and mdz_frames' launches;
+     stages (not for the water-like trajectory), warm peaks, each batch's
+     method and mdz_frames' launches;
      mdz_frames against its plain versions on the VQT case's own input,
-     timed with its bound.
+     timed with its bound;
+  8. serving (sz3_tpu_torch.serving) on time steps of nyx_like(n) (snapshot
+     k: the field rolled by 3k along axis 0 plus N(0, 1e-3 k) noise): 16 x
+     256^3 at ABS 1e-3 with snapshots 7 and 15 white noise over 100 times the
+     field's range, each value twice along the last axis (the lossless
+     route), 4 x 512^3 at ABS, 8 x 256^3 at REL
+     1e-3, 4 x 256^3 f64 at ABS; every archive sha256-equal to single-field
+     compress (INTERP pinned) and to the host engine's, decompress_batch
+     bit-equal to the engine's decode and within the bound; walls cold and
+     warm beside the single-field warm walls summed, the busy share, the warm
+     peaks, at 512^3 the device time inside the host seals and depth 1; K1,
+     K2+K3, the count and the write phase held against their plain versions
+     on the REL batch's last field, captured from the serving route;
+  9. sharded payloads (sz3_tpu_torch.parallel.sharded) of a 517 x 512 x 512
+     field at ABS and REL 1e-3: one NCCL rank in this process and 4 gloo
+     ranks sharing cuda:0 (spawned), each payload sha256-equal to
+     compress_chunked and to the host engine at as many chunks, each rank's
+     decode bit-equal to the engine's; dryrun_multichip(4).
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -100,7 +119,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 EB = 1e-3
 SIZES = (256, 512)
-REPS = 20
+REPS = 10
 PLAIN_SCAN_REPS = 1        # the plain scan is thousands of small launches
 SPIN_CYCLES = 40_000_000   # of torch.cuda._sleep: some 20 ms on an H100
 # the per-window symbol rows of the decode before its write phase, MB, as
@@ -132,6 +151,51 @@ def md_traj(frames, atoms, seed=0, fill_tail=0, site_atoms=3):
     if fill_tail:
         traj[-fill_tail:] = -1.0
     return np.ascontiguousarray(traj, dtype=np.float32)
+
+
+def _phase9_rank(rank: int, world: int, store: str, out: str, field: str, modes) -> None:
+    """One of phase 9's gloo ranks, all on cuda:0: the sharded encode and
+    decode of the field saved at `field` in each mode; writes the payload's
+    and the decode's sha256, the walls and the kernels' launches to
+    <out>/rank<r>.json."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import sz3_tpu_torch as szp
+    from sz3_tpu_torch.ops import entropy_decode as dec
+    from sz3_tpu_torch.ops import entropy_device as ed
+    from sz3_tpu_torch.parallel import sharded
+
+    counters = {"hist_literals": ed.hist_and_literals, "pack_bits": ed.pack_bits,
+                "huff_scan": dec.scan_windows, "huff_write": dec.write_windows}
+    data = np.load(field)
+    sharded.init_file_group(store, rank, world)
+    res = {}
+    try:
+        for mode in modes:
+            kw = {"absErrorBound": EB} if mode == "ABS" else {
+                "errorBoundMode": szp.EB.REL, "relErrorBound": 1e-3}
+            for w in counters.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = sharded.sharded_encode_payload(
+                szp.Config(cmprAlgo=szp.ALGO.INTERP, openmp=True, **kw), data)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            field_out = sharded.sharded_decode_payload(szp.Config(dims=data.shape, openmp=True),
+                                                       payload, dtype=np.float32)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res[mode] = {"payload_sha": hashlib.sha256(payload).hexdigest(),
+                         "out_sha": hashlib.sha256(field_out.cpu().numpy().tobytes()).hexdigest(),
+                         "enc_s": t1 - t0, "dec_s": t2 - t1,
+                         "launches": {k: w.launches for k, w in counters.items()}}
+            del field_out
+    finally:
+        sharded.dist.destroy_process_group()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
 
 
 def fail(msg: str):
@@ -188,7 +252,6 @@ def main() -> int:
     from sz3_tpu_torch.ops import entropy_device as ed
     from sz3_tpu_torch.ops import mdz_device as md
     from sz3_tpu_torch.ops import stream_order
-    from sz3_tpu_torch.ops import xtc_device as xtc
     from sz3_tpu_torch.ops.interp_fast import (bins_to_grid, decode_grid_fast, encode_grid_fast,
                                                grid_to_pass_slices, initial_literal)
     from sz3_tpu_torch.parallel import chunked
@@ -1543,17 +1606,6 @@ def main() -> int:
                       (runtime, "open_packed", "host zstd open"),
                       (dd, "dense_bins", "Huffman decode"),
                       (dd, "decode_payload_device", "device decode")]
-    biomd_enc_stages = [(runtime, "biomd_frame0", "host frame 0"),
-                        (bd, "frames_encode", "frames 1..last"),
-                        (runtime, "biomd_seal", "host seal")]
-    biomd_dec_stages = [(runtime, "biomd_header", "host header read"),
-                        (runtime, "biomd_open", "host open"),
-                        (runtime, "biomd_frame0_open", "host frame 0"),
-                        (bd, "frames_recover", "frames 1..last")]
-    xtc_enc_stages = [(xtc, "xtc_quantize", "quantize"),
-                      (runtime, "biomdxtc_seal", "host XTC coder")]
-    xtc_dec_stages = [(runtime, "biomdxtc_open", "host XTC decode"),
-                      (xtc, "xtc_recover", "recover")]
 
     def staged(stages, spec, fn, rest):
         """fn() with each stage of `spec` timed and its device memory peak;
@@ -1742,7 +1794,8 @@ def main() -> int:
     }
     for label, (make, n, eb_b) in omp_cases.items():
         first = n == CHUNKS and "ABS" in label
-        blob_native, got = case6(label, fields[512], make, omp_enc_stages, omp_dec_stages,
+        blob_native, got = case6(label, fields[512], make, omp_enc_stages if first else None,
+                                 omp_dec_stages,
                                  {"enc": lambda s, n=n: s.get("hist_literals") == n
                                   and s.get("pack_bits") == n,
                                   "dec": lambda s, n=n: s.get("huff_write") == n},
@@ -1802,19 +1855,18 @@ def main() -> int:
         check(bd.cal_site(traj[1]) == 3, f"trajectory site {bd.cal_site(traj[1])}, not 3")
     bio_args = {}
     for tag, traj in trajs.items():
-        for algo, enc_spec, dec_spec in ((szp.ALGO.BIOMD, biomd_enc_stages, biomd_dec_stages),
-                                         (szp.ALGO.BIOMDXTC, xtc_enc_stages, xtc_dec_stages)):
+        for algo in (szp.ALGO.BIOMD, szp.ALGO.BIOMDXTC):
             biomd = algo == szp.ALGO.BIOMD
             want = {"biomd_frames": 1} if biomd else {}
-            # the stages of the case with fill frames are those of the first
+            # no stages: PERF.md holds their earlier readings, and the script's
+            # time limit took these repetitions when phases 8 and 9 came
             _, got = case6(f"{algo.name} {traj.shape[0]}x{TRAJ_ATOMS}x3{tag}", traj,
-                           lambda algo=algo: conf6(algo), None if tag else enc_spec,
-                           None if tag else dec_spec,
+                           lambda algo=algo: conf6(algo), None, None,
                            {"enc": lambda s, want=want: s == want,
                             "dec": lambda s, want=want: s == want},
-                           bound_eb=EB * 1.2, busy_too=not tag,
+                           bound_eb=EB * 1.2,
                            capture=[(bd, "frames_encode"), (bd, "frames_recover")]
-                           if biomd and not tag else None, rest=(True, True))
+                           if biomd and not tag else None)
             bio_args.update(got)
     water = trajs[""]           # phase 7 compresses it with MDZ
     del trajs
@@ -1924,7 +1976,7 @@ def main() -> int:
             pos += 8 + ln
         return out
 
-    def case7(label, data, kw, capture=False):
+    def case7(label, data, kw, capture=False, stages=True):
         """One MDZ case: the engine's archive and decode, the port's cold and
         warm compress and decompress on the card, checked equal; walls,
         peaks, methods, launches and stages. Returns the captured arguments
@@ -1990,11 +2042,12 @@ def main() -> int:
               f"warm decompress {dec_peak / 2**30:.3f} GiB ({dec_peak / data.nbytes:.2f})",
               flush=True)
         del out, out_np
-        # the select trials hold their own sweeps, seals and copies
-        staged("encode stages", mdz_enc_stages,
-               lambda: mdz.mdz_compress(data, device="cuda", **kw), False)
-        staged("decode stages", mdz_dec_stages,
-               lambda: mdz.mdz_decompress(blob_native, device="cuda"), True)
+        if stages:
+            # the select trials hold their own sweeps, seals and copies
+            staged("encode stages", mdz_enc_stages,
+                   lambda: mdz.mdz_compress(data, device="cuda", **kw), False)
+            staged("decode stages", mdz_dec_stages,
+                   lambda: mdz.mdz_decompress(blob_native, device="cuda"), True)
         torch.cuda.empty_cache()
         stamp(f"{label} done")
         return {k: v.get("args") for k, v in grabbed.items()}
@@ -2018,7 +2071,7 @@ def main() -> int:
         mdz_args.update({k: v for k, v in got.items() if v is not None})
     del lattice, head
     case7(f"MDZ ADP {TRAJ_FRAMES}x{TRAJ_ATOMS}x3 water-like", water,
-          dict(rel_eb=1e-3, batch_size=100))
+          dict(rel_eb=1e-3, batch_size=100), stages=False)
     del water
 
     # the recurrence on the path's own input (the VQT case's last axis):
@@ -2064,6 +2117,338 @@ def main() -> int:
     check(p7_launches["mdz_frames"] >= 1, "kernel mdz_frames was not launched in phase 7")
     stamp("phase 7 done")
 
+    # ---- phase 8: serving ------------------------------------------------------------
+    # sz3_tpu_torch.serving on time steps of nyx_like(n): snapshot k is the field
+    # rolled by 3k along axis 0 plus N(0, 1e-3 k) noise (np.random.default_rng(k));
+    # each archive sha256-equal to the port's single-field compress (INTERP
+    # pinned) and to the host engine's, decompress_batch bit-equal to the
+    # engine's decode; launches counted over the batch calls alone
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sz3_tpu_torch import serving
+
+    p8_launches = dict.fromkeys(counters, 0)
+    engine_pool = ThreadPoolExecutor(max_workers=8)   # the engine's calls release the GIL
+
+    def drive8(fn):
+        for w in counters.values():
+            w.launches = 0
+        out = sync_time(fn)
+        seen = {k: w.launches for k, w in counters.items()}
+        for k, v in seen.items():
+            p8_launches[k] += v
+        return out, {k: v for k, v in seen.items() if v}
+
+    def snapshots(base, b, noise=()):
+        """b time steps of `base`; those in `noise` white noise over 100 times
+        its range, each value twice along the last axis: most points are
+        literals (ratio below 3), and zstd of the field beats the lossy
+        payload, so they take the lossless route. (Plain white noise over the
+        range stays INTERP at ratio 2.5, and over 100 times the range it
+        ties with zstd: lossless at 96^3, INTERP at 256^3.)"""
+        lo, hi = float(base.min()), float(base.max())
+        mid, half = (lo + hi) / 2, 50 * (hi - lo)
+        out = np.empty((b,) + base.shape, base.dtype)
+        for k in range(b):
+            rng = np.random.default_rng(k)
+            if k in noise:
+                half_shape = base.shape[:-1] + (base.shape[-1] // 2,)
+                out[k] = np.repeat(rng.uniform(mid - half, mid + half, half_shape), 2, axis=-1)
+            else:
+                out[k] = np.roll(base, 3 * k, axis=0)
+                if k:
+                    out[k] += rng.standard_normal(base.shape, dtype=np.float32) * (1e-3 * k)
+        return out
+
+    def pinned(make):
+        c = make()
+        if c.cmprAlgo == szp.ALGO.INTERP_LORENZO:
+            c.cmprAlgo = szp.ALGO.INTERP
+        return c
+
+    def union(spans):
+        out = []
+        for s, e in sorted(spans):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    def seal_overlap(fn):
+        """One call under torch.profiler: (device busy ms, device ms inside the
+        host seals, the seals' ms (their union), wall ms, seals, {stage: (calls,
+        s)}). Wrappers of the device half, the host half and the engine's seal
+        record their host intervals (without a synchronisation); the seals'
+        are placed on the profiler's clock by a marker the main thread
+        records."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        stages = {"device halves (main thread)": (de, "pack_device"),
+                  "host halves (workers)": (de, "seal_packed"),
+                  "engine seals": (runtime, "interp_seal_packed")}
+        got = {k: [] for k in stages}
+        saved = {k: getattr(mod, name) for k, (mod, name) in stages.items()}
+
+        def recorder(key):
+            real = saved[key]
+
+            def inner(*a, **k):
+                t0 = time.perf_counter_ns()
+                try:
+                    return real(*a, **k)
+                finally:
+                    got[key].append((t0, time.perf_counter_ns()))
+            return inner
+
+        for key, (mod, name) in stages.items():
+            setattr(mod, name, recorder(key))
+        spans = got["engine seals"]
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("phase 8 clock marker"):
+                    mark = time.perf_counter_ns()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for key, (mod, name) in stages.items():
+                setattr(mod, name, saved[key])
+        events = prof.events()
+        off = next(e for e in events if e.name == "phase 8 clock marker").time_range.start \
+            - mark / 1e3
+        dev_iv = union([(e.time_range.start, e.time_range.end) for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
+        seal_iv = union([(s / 1e3 + off, e / 1e3 + off) for s, e in spans])
+        inside = sum(max(0.0, min(e1, e2) - max(s1, s2))
+                     for s1, e1 in dev_iv for s2, e2 in seal_iv)
+        return (sum(e - s for s, e in dev_iv) / 1e3, inside / 1e3,
+                sum(e - s for s, e in seal_iv) / 1e3, wall * 1e3, len(spans),
+                {k: (len(v), sum(e - s for s, e in v) / 1e9) for k, v in got.items()})
+
+    def case8(label, stack, make, bound_eb, noise=(), hold=False, overlap=False):
+        """One phase-8 case (`bound_eb(i)`: field i's bound); with `hold`, returns
+        the arguments of the last field's device encode and decode, captured
+        from the serving route."""
+        b = stack.shape[0]
+        gb = stack.nbytes / 1e9
+        want, eng_s = sync_time(lambda: list(engine_pool.map(
+            lambda f: native_compress(f, pinned(make)), stack)))
+        shas = [hashlib.sha256(x).hexdigest() for x in want]
+        grabbed = {}
+        with contextlib.ExitStack() as st:
+            if hold:
+                grabbed["enc"] = st.enter_context(captured(de, "pack_device"))
+            (blobs_cold, cold_s), _ = drive8(
+                lambda: serving.compress_batch(stack, make(), device="cuda"))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (blobs, warm_s), enc_seen = drive8(
+            lambda: serving.compress_batch(stack, make(), device="cuda"))
+        peak = torch.cuda.max_memory_allocated() - held
+        reserved = torch.cuda.max_memory_reserved()
+        for tag, got in (("cold", blobs_cold), ("warm", blobs)):
+            check([hashlib.sha256(x).hexdigest() for x in got] == shas,
+                  f"{label}: {tag} batch archives differ from the host engine's")
+        check(enc_seen == {"hist_literals": b, "pack_bits": b},
+              f"{label}: the batch launched {enc_seen}")
+        single_s, single_peak = 0.0, 0
+        for i, f in enumerate(stack):
+            torch.cuda.synchronize()
+            sheld = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (blob, s), _ = drive8(lambda: szp.compress(f, pinned(make), device="cuda"))
+            single_peak = max(single_peak, torch.cuda.max_memory_allocated() - sheld)
+            check(blob == want[i], f"{label}: single-field archive {i} differs from the "
+                                   f"engine's")
+            single_s += s
+        lossless = [i for i, x in enumerate(blobs)
+                    if szp.open_archive(x)[0].cmprAlgo == szp.ALGO.LOSSLESS]
+        check(lossless == list(noise), f"{label}: lossless fields {lossless}, not {noise}")
+        ref = list(engine_pool.map(native_decompress, want))
+        with contextlib.ExitStack() as st:
+            if hold:
+                grabbed["dec"] = st.enter_context(captured(dd, "decode_payload_device"))
+            (out, dec_s), dec_seen = drive8(lambda: serving.decompress_batch(blobs,
+                                                                             device="cuda"))
+        check(out.device.type == "cuda" and tuple(out.shape) == stack.shape,
+              f"{label}: decompress_batch gave {tuple(out.shape)} on {out.device}")
+        err = 0.0
+        for i in range(b):
+            o = out[i].cpu().numpy()
+            check(o.tobytes() == ref[i].tobytes(),
+                  f"{label}: field {i} decode not bit-equal to the engine's")
+            e = float(np.abs(o.astype(np.float64) - stack[i]).max())
+            check(e <= bound_eb(i), f"{label}: field {i} max error {e} > {bound_eb(i)}")
+            err = max(err, e)
+        coded = b - len(lossless)
+        check(dec_seen.get("huff_write") == coded and dec_seen.get("huff_scan", 0) >= coded,
+              f"{label}: decompress_batch launched {dec_seen}")
+        del out
+        if overlap:
+            busy_ms, inside_ms, seal_ms, wall_ms, nseal, host = seal_overlap(
+                lambda: serving.compress_batch(stack, make(), device="cuda"))
+        else:
+            busy_ms, wall_ms, _, _ = busy(lambda: serving.compress_batch(stack, make(),
+                                                                          device="cuda"))
+        inflight = min(serving.DEPTH, b)
+        print(f"{label} ({b} x {stack[0].nbytes / 1e6:.0f} MB {stack.dtype}, {gb:.2f} GB, "
+              f"ratio {stack.nbytes / sum(map(len, blobs)):.2f}, lossless fields {lossless}): "
+              f"archives sha256 == single-field compress == host engine; decompress_batch "
+              f"bit-equal; max err {err:.3e}", flush=True)
+        print(f"  batch wall: cold {cold_s:.3f} s, warm {warm_s:.3f} s ({gb / warm_s:.3f} GB/s); "
+              f"single-field compress, warm walls summed {single_s:.3f} s "
+              f"({gb / single_s:.3f} GB/s); host engine {eng_s:.3f} s on 8 threads; "
+              f"decompress_batch {dec_s:.3f} s ({gb / dec_s:.3f} GB/s); launches per "
+              f"batch {enc_seen}, per decompress_batch {dec_seen}", flush=True)
+        print(f"  warm batch: device busy {busy_ms:.2f} of {wall_ms:.2f} ms under torch.profiler "
+              f"({100 * busy_ms / wall_ms:.2f} %{'' if busy_ms else ', not measured'}); peak device memory {peak / 2**30:.3f} GiB above "
+              f"the {held / 2**30:.3f} GiB held ({peak / inflight / 2**30:.3f} GiB per in-flight "
+              f"field, {inflight} in flight; {peak / stack[0].nbytes:.2f} bytes a field byte), "
+              f"reserved {reserved / 2**30:.3f} GiB; single-field warm compress peak "
+              f"{single_peak / 2**30:.3f} GiB ({single_peak / stack[0].nbytes:.2f} bytes a field "
+              f"byte)", flush=True)
+        if overlap:
+            share = f"{100 * inside_ms / busy_ms:.2f} %" if busy_ms else "not measured"
+            print(f"  the {nseal} host seals of the warm batch span {seal_ms:.2f} ms (their union); "
+                  f"device busy inside them {inside_ms:.2f} ms of the call's {busy_ms:.2f} ms "
+                  f"({share}); host time by stage, summed over the fields: "
+                  + ", ".join(f"{k} {v[1]:.3f} s ({v[0]} calls)" for k, v in host.items()),
+                  flush=True)
+            serving.DEPTH, depth = 1, serving.DEPTH
+            try:
+                (one, one_s), _ = drive8(lambda: serving.compress_batch(stack, make(),
+                                                                        device="cuda"))
+            finally:
+                serving.DEPTH = depth
+            check(one == blobs, f"{label}: depth 1 archives differ")
+            print(f"  depth 1 (one field at a time, each sealed before the next starts): "
+                  f"{one_s:.3f} s, against {warm_s:.3f} s at depth {depth}", flush=True)
+        torch.cuda.empty_cache()
+        stamp(f"{label} done")
+        return {k: v.get("args") for k, v in grabbed.items()}
+
+    def abs_conf():
+        return szp.Config(absErrorBound=EB)
+
+    def abs_bound(i):
+        return EB
+
+    case8("serving ABS 1e-3, 16 x 256^3", snapshots(fields[256], 16, noise=(7, 15)), abs_conf,
+          abs_bound, noise=(7, 15))
+    case8("serving ABS 1e-3, 4 x 512^3", snapshots(fields[512], 4), abs_conf, abs_bound,
+          overlap=True)
+    rel_stack = snapshots(fields[256], 8)
+    rel_bounds = [1e-3 * float(f.max() - f.min()) for f in rel_stack]
+    got = case8("serving REL 1e-3, 8 x 256^3", rel_stack,
+                lambda: szp.Config(errorBoundMode=szp.EB.REL, relErrorBound=1e-3),
+                rel_bounds.__getitem__, hold=True)
+    del rel_stack
+    s_conf, s_x = got["enc"][:2]
+    hold_path("serving REL 256^3, field 8 of 8", stream_of(s_x, s_conf), s_conf, got["dec"],
+              algo=2)
+    del s_x, got
+    case8("serving ABS 1e-3, 4 x 256^3 f64", snapshots(fields[256].astype(np.float64), 4),
+          abs_conf, abs_bound)
+    print(f"phase 8 launches {p8_launches}", flush=True)
+    for k in counters:
+        check(p8_launches[k] >= 1, f"kernel {k} was not launched in phase 8")
+    stamp("phase 8 done")
+
+    # ---- phase 9: sharded OpenMP-format archives -----------------------------------------
+    # sz3_tpu_torch.parallel.sharded on a ragged 517 x 512 x 512 field (nyx_like(512)
+    # and its first 5 planes; 4 chunks of 129 / 130 rows) at ABS and REL 1e-3: one
+    # rank over NCCL in this process, then 4 gloo ranks sharing cuda:0, spawned;
+    # payloads sha256-equal to compress_chunked and to the host engine at as many
+    # chunks, the sharded decode bit-equal to the engine's decode
+    import tempfile
+
+    import torch.distributed as tdist
+    import torch.multiprocessing as tmp_mp
+
+    from sz3_tpu_torch.parallel import sharded
+
+    p9_launches = dict.fromkeys(counters, 0)
+    field9 = np.concatenate([fields[512], fields[512][:5]])
+    modes9 = {"ABS": {"absErrorBound": EB},
+              "REL": {"errorBoundMode": szp.EB.REL, "relErrorBound": 1e-3}}
+
+    def conf9(mode):
+        return szp.Config(cmprAlgo=szp.ALGO.INTERP, openmp=True, **modes9[mode])
+
+    def engine9(mode, n):
+        c, cap = archive_conf(field9, conf9(mode))
+        return runtime.compress_payload(c, field9, cap, n)
+
+    jobs = {(m, n): engine_pool.submit(engine9, m, n) for m in modes9 for n in (1, 4)}
+    eng9 = {k: f.result() for k, f in jobs.items()}
+    def engine9_decode(mode, payload):
+        return runtime.decompress_payload(archive_conf(field9, conf9(mode))[0], payload)
+
+    dec_jobs = {k: engine_pool.submit(engine9_decode, k[0], p) for k, p in eng9.items()}
+    eng9_out = {k: hashlib.sha256(f.result().tobytes()).hexdigest() for k, f in dec_jobs.items()}
+    for mode in modes9:
+        got, s = sync_time(lambda: chunked.compress_chunked(conf9(mode), field9, 4, dev))
+        check(got == eng9[mode, 4], f"compress_chunked {mode}, 4 chunks: payload differs from "
+                                    f"the engine's")
+        print(f"sharded {mode}: compress_chunked in 4 chunks == host engine at nthreads=4 "
+              f"({len(got)} B, {s:.3f} s on the card)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded.init_file_group(str(Path(tmp) / "store"), 0, 1, backend="nccl")
+        try:
+            for mode in modes9:
+                for w in counters.values():
+                    w.launches = 0
+                payload, enc_s = sync_time(lambda: sharded.sharded_encode_payload(
+                    conf9(mode), field9))
+                out, dec_s = sync_time(lambda: sharded.sharded_decode_payload(
+                    szp.Config(dims=field9.shape, openmp=True), payload, dtype=np.float32))
+                for k, w in counters.items():
+                    p9_launches[k] += w.launches
+                check(payload == eng9[mode, 1], f"NCCL rank, {mode}: payload differs")
+                check(hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+                      == eng9_out[mode, 1], f"NCCL rank, {mode}: decode differs from the engine's")
+                print(f"sharded {mode}, 1 NCCL rank on {out.device}: payload == host engine, "
+                      f"decode bit-equal; encode {enc_s:.3f} s, decode {dec_s:.3f} s",
+                      flush=True)
+                del out
+        finally:
+            tdist.destroy_process_group()
+        torch.cuda.empty_cache()
+        npy = Path(tmp) / "field9.npy"
+        np.save(npy, field9)
+        t = time.perf_counter()
+        tmp_mp.spawn(_phase9_rank, args=(4, str(Path(tmp) / "store4"), tmp, str(npy),
+                                         list(modes9)), nprocs=4, join=True)
+        spawn_s = time.perf_counter() - t
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(4)]
+    for mode in modes9:
+        want_p = hashlib.sha256(eng9[mode, 4]).hexdigest()
+        for r, res in enumerate(ranks):
+            check(res[mode]["payload_sha"] == want_p, f"gloo rank {r}, {mode}: payload differs")
+            check(res[mode]["out_sha"] == eng9_out[mode, 4],
+                  f"gloo rank {r}, {mode}: decode differs from the engine's")
+            for k, v in res[mode]["launches"].items():
+                p9_launches[k] += v
+        print(f"sharded {mode}, 4 gloo ranks on cuda:0: every rank's payload == host engine at "
+              f"nthreads=4 and == compress_chunked, decode bit-equal; encode "
+              f"{[round(x[mode]['enc_s'], 3) for x in ranks]} s, decode "
+              f"{[round(x[mode]['dec_s'], 3) for x in ranks]} s by rank; launches by rank "
+              f"{[x[mode]['launches'] for x in ranks]}", flush=True)
+    print(f"  4 ranks spawned and joined in {spawn_s:.1f} s", flush=True)
+    t = time.perf_counter()
+    sharded.dryrun_multichip(4)
+    print(f"  dryrun_multichip(4): {time.perf_counter() - t:.1f} s", flush=True)
+    del field9, eng9
+    engine_pool.shutdown()
+    print(f"phase 9 launches {p9_launches}", flush=True)
+    for k in counters:
+        check(p9_launches[k] >= 1, f"kernel {k} was not launched in phase 9")
+    stamp("phase 9 done")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
@@ -2107,6 +2492,8 @@ def main() -> int:
         r["lorenzo_reg_launches"] = lr_launches.get(r["name"], 0)
         r["phase6_launches"] = p6_launches.get(r["name"], 0)
         r["phase7_launches"] = p7_launches.get(r["name"], 0)
+        r["phase8_launches"] = p8_launches.get(r["name"], 0)
+        r["phase9_launches"] = p9_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ first point's bin goes into the bins grid when there are no anchors.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,17 +95,45 @@ def _tree_and_tables(hist: torch.Tensor, radius: int, num: int, device):
             torch.from_numpy(tl).to(device))
 
 
-def _stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
+def _big_endian(words: torch.Tensor, total_bits: int) -> torch.Tensor:
     """Packed words (MSB-first uint32 patterns) -> the big-endian byte
-    stream the format wants, trimmed to ceil(total_bits/8) bytes."""
-    words_np = words.cpu().numpy()
-    return words_np.view(np.uint32).byteswap().tobytes()[: (total_bits + 7) // 8]
+    stream the format wants, ceil(total_bits/8) uint8 on the words' device.
+    The byte swap runs where the words are (on the card one short pass), so
+    the host copies the stream once."""
+    return words.view(torch.uint8).reshape(-1, 4).flip(1).reshape(-1)[:(total_bits + 7) // 8]
 
 
-def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
-    """INTERP payload of the float field `x` (on the device that runs the
-    encode, shaped conf.dims) with the entropy stage on that device.
-    conf.interpAnchorStride must be resolved."""
+def _stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
+    """The big-endian byte stream of the packed words, on the host."""
+    return _big_endian(words, total_bits).cpu().numpy().tobytes()
+
+
+class Packed(NamedTuple):
+    """The device half of an INTERP encode (:func:`pack_device`): what the
+    host half (:func:`seal_packed`) seals into the payload."""
+    tree: bytes
+    total_bits: int
+    num: int
+    bits: torch.Tensor            # the big-endian stream, on the host (page-locked from the card)
+    unpred: torch.Tensor          # the literals in stream order, on the host
+    done: Optional[torch.cuda.Event]   # recorded after both copies; None on the CPU
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host: from the card a page-locked copy, queued on the
+    current stream; a CPU tensor as it is."""
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def pack_device(conf: Config, x: torch.Tensor) -> Packed:
+    """The device half of ``encode_payload_device``, on the current stream:
+    passes, stream gather, K1, the host's tree, K2+K3, and the packed words
+    and literals queued to the host. It waits only for this stream (K1's
+    histogram, K2+K3's bit count), so work queued on other streams runs on."""
     plan = plan_for(conf)
     num = int(np.prod(conf.dims))
     bins_list, b0, _ = encode_grid_fast(x, plan)
@@ -115,9 +143,30 @@ def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
     hist, slots = ed.hist_and_literals(bins_stream, plan.radius)   # hist on the host
     tree, total_bits, tc, tl = _tree_and_tables(hist, plan.radius, num, x.device)
     words = ed.pack_bits(bins_stream, tc, tl, plan.radius, total_bits)
-    bits_bytes = _stream_bytes(words, total_bits)
-    unpred = stream_order.literal_values(x, perm, slots).cpu().numpy()
-    return runtime.interp_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)
+    unpred = stream_order.literal_values(x, perm, slots)
+    bits, unpred = _to_host(_big_endian(words, total_bits)), _to_host(unpred)
+    done = None
+    if x.device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record()
+    return Packed(tree, total_bits, num, bits, unpred, done)
+
+
+def seal_packed(conf: Config, packed: Packed, cap: int) -> bytes:
+    """The host half: waits for the copies of ``packed``, then frames and
+    zstd-compresses the payload (runtime.interp_seal_packed)."""
+    if packed.done is not None:
+        packed.done.synchronize()
+    return runtime.interp_seal_packed(conf, packed.tree, packed.bits.numpy().tobytes(),
+                                      packed.total_bits, packed.num, packed.unpred.numpy(), cap)
+
+
+def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
+    """INTERP payload of the float field `x` (on the device that runs the
+    encode, shaped conf.dims) with the entropy stage on that device: the
+    device half, then the host half. conf.interpAnchorStride must be
+    resolved."""
+    return seal_packed(conf, pack_device(conf, x), cap)
 
 
 def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,

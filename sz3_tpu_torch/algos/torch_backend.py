@@ -153,16 +153,24 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: tor
     route = _encode_route(conf, data)
     if route is None:
         return runtime.compress_payload(conf, data, cap)
+    return finish_payload(conf, data, cap, lambda: _device_encode_payload(conf, data, cap,
+                                                                            device, route))
+
+
+def finish_payload(conf: Config, data: np.ndarray, cap: int, encode) -> bytes:
+    """The dispatcher's downgrades around a lossy encode (`encode()` returns
+    its payload; mutates `conf` as the reference does): buffer too small ->
+    lossless, and the lossy-ratio < 3 zstd preference (SZDispatcher.hpp:61-74),
+    which BIOMD and BIOMDXTC skip (:36-39)."""
     try:
-        payload = _device_encode_payload(conf, data, cap, device, route)
+        payload = encode()
     except RuntimeError as e:
         if "buffer too small" not in str(e):
             raise
         conf.cmprAlgo = ALGO.LOSSLESS
         return runtime.zstd_compress(data.tobytes())
     if conf.cmprAlgo in (ALGO.BIOMD, ALGO.BIOMDXTC):
-        return payload      # no ratio fallback (SZDispatcher.hpp:36-39)
-    # lossy ratio < 3 -> prefer plain zstd when smaller (SZDispatcher.hpp:61-74)
+        return payload
     if data.nbytes / len(payload) < 3:
         z = runtime.zstd_compress(data.tobytes())
         if len(z) < len(payload) and len(z) <= cap:

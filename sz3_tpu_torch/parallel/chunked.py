@@ -21,7 +21,7 @@ import torch
 
 from .. import runtime
 from ..config import EB, Config
-from ..stats import cal_abs_error_bound
+from ..stats import cal_abs_error_bound, data_range
 
 
 def _chunk_bounds(dim0: int, n: int) -> List[Tuple[int, int]]:
@@ -33,9 +33,6 @@ def compress_chunked(conf: Config, data: np.ndarray, n_chunks: int,
     """OpenMP-format payload of `data` in `n_chunks` chunks (fewer when the
     squeezed conf.dims[0] is smaller); `conf` keeps the openmp bit and takes
     the global error bound."""
-    from ..algos.torch_backend import compress_payload_torch
-    from ..api import zstd_compress_bound
-
     # the engine chunks on the squeezed conf.dims[0] (pipeline.hpp
     # compress_chunked), not on the raw leading axis
     conf.set_dims(data.shape)
@@ -43,28 +40,62 @@ def compress_chunked(conf: Config, data: np.ndarray, n_chunks: int,
     n_chunks = min(n_chunks, conf.dims[0])
     if conf.errorBoundMode != EB.ABS:
         # one range over the whole field before chunking (SZImplOMP.hpp:57-68)
-        cal_abs_error_bound(conf, data, float(data.max() - data.min()))
+        cal_abs_error_bound(conf, data, data_range(data))
+    return assemble([encode_chunk(conf, data, lo, hi, device)
+                     for lo, hi in _chunk_bounds(conf.dims[0], n_chunks)])
 
-    confs, streams = [], []
-    for lo, hi in _chunk_bounds(conf.dims[0], n_chunks):
-        chunk = np.ascontiguousarray(data[lo:hi])
-        work = conf.copy()
-        work.set_dims(chunk.shape)
-        # the reference's cap (SZImplOMP.hpp:73) with the engine's headroom,
-        # so that both make the same downgrade decisions
-        cap = zstd_compress_bound(chunk.nbytes) + 4096
-        work.openmp = False              # the chunk is a plain dispatcher stream
-        streams.append(compress_payload_torch(work, chunk, cap, device))
-        work.openmp = conf.openmp        # its header keeps the bit and its decisions
-        confs.append(work)
 
-    out = bytearray(struct.pack("<i", len(streams)))
-    for c in confs:
+def encode_chunk(conf: Config, data: np.ndarray, lo: int, hi: int,
+                 device: torch.device) -> Tuple[Config, bytes]:
+    """(the chunk's Config, its stream): rows [lo, hi) of `data` (shaped
+    conf.dims, whose bound is resolved) through the port's dispatcher."""
+    from ..algos.torch_backend import compress_payload_torch
+    from ..api import zstd_compress_bound
+
+    chunk = np.ascontiguousarray(data[lo:hi])
+    work = conf.copy()
+    work.set_dims(chunk.shape)
+    # the reference's cap (SZImplOMP.hpp:73) with the engine's headroom, so
+    # that both make the same downgrade decisions
+    cap = zstd_compress_bound(chunk.nbytes) + 4096
+    work.openmp = False                  # the chunk is a plain dispatcher stream
+    stream = compress_payload_torch(work, chunk, cap, device)
+    work.openmp = conf.openmp            # its header keeps the bit and its decisions
+    return work, stream
+
+
+def assemble(chunks: List[Tuple[Config, bytes]]) -> bytes:
+    """The OpenMP-format payload of the chunks' (Config, stream) pairs."""
+    out = bytearray(struct.pack("<i", len(chunks)))
+    for c, _ in chunks:
         out += c.save()
-    out += struct.pack(f"<{len(streams)}Q", *(len(s) for s in streams))
-    for s in streams:
+    out += struct.pack(f"<{len(chunks)}Q", *(len(s) for _, s in chunks))
+    for _, s in chunks:
         out += s
     return bytes(out)
+
+
+def read_chunks(conf: Config, payload: bytes) -> List[Tuple[int, int, Config, bytes]]:
+    """(lo, hi, Config, stream) of each chunk of an OpenMP-format payload of
+    a field shaped conf.dims; each Config with its openmp bit cleared."""
+    n = struct.unpack_from("<i", payload, 0)[0]
+    if n < 1 or n > max(1, conf.dims[0]):
+        raise ValueError(f"invalid chunk count {n} in the archive")
+    pos, confs = 4, []
+    for _ in range(n):
+        c, used = Config.load(payload, pos)
+        c.openmp = False                 # chunk streams are plain dispatcher streams
+        confs.append(c)
+        pos += used
+    sizes = struct.unpack_from(f"<{n}Q", payload, pos)
+    pos += 8 * n
+    if pos + sum(sizes) > len(payload):
+        raise ValueError("chunk sizes exceed the payload")
+    out = []
+    for (lo, hi), c, size in zip(_chunk_bounds(conf.dims[0], n), confs, sizes):
+        out.append((lo, hi, c, payload[pos:pos + size]))
+        pos += size
+    return out
 
 
 def decompress_chunked(conf: Config, payload: bytes, dtype,
@@ -73,25 +104,11 @@ def decompress_chunked(conf: Config, payload: bytes, dtype,
     each chunk decoded into its rows. `dtype` is the element type (numpy)."""
     from ..algos.torch_backend import decompress_payload_torch
 
-    n = struct.unpack_from("<i", payload, 0)[0]
-    if n < 1 or n > max(1, conf.dims[0]):
-        raise ValueError(f"invalid chunk count {n} in the archive")
-    pos, confs = 4, []
-    for _ in range(n):
-        c, used = Config.load(payload, pos)
-        confs.append(c)
-        pos += used
-    sizes = struct.unpack_from(f"<{n}Q", payload, pos)
-    pos += 8 * n
-    if pos + sum(sizes) > len(payload):
-        raise ValueError("chunk sizes exceed the payload")
+    chunks = read_chunks(conf, payload)
     dt = runtime.np_dtype_id(np.empty(0, dtype=dtype))
     out = torch.empty(conf.dims, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
                       device=device)
     rows = tuple(conf.dims[1:])
-    for (lo, hi), c, size in zip(_chunk_bounds(conf.dims[0], n), confs, sizes):
-        c.openmp = False                 # chunk streams are plain dispatcher streams
-        chunk = decompress_payload_torch(c, payload[pos:pos + size], dt, device)
-        out[lo:hi] = chunk.reshape((hi - lo,) + rows)
-        pos += size
+    for lo, hi, c, blob in chunks:
+        out[lo:hi] = decompress_payload_torch(c, blob, dt, device).reshape((hi - lo,) + rows)
     return out

@@ -14,7 +14,15 @@ from .config import Config, EB
 
 
 def data_range(data: np.ndarray) -> float:
-    return float(data.max() - data.min())
+    """max - min in the data's type, as the host engine and the reference
+    compute it (Statistic.hpp:11-20): a loop from the first element that a
+    NaN compares false in, so NaN is passed over unless it is the first
+    element, and then the range is NaN. (numpy's max and min, which the JAX
+    package uses, return NaN for any NaN.)"""
+    flat = data.reshape(-1)
+    if flat[0] != flat[0]:
+        return float("nan")
+    return float(np.fmax.reduce(flat) - np.fmin.reduce(flat))
 
 
 def cal_abs_error_bound(conf: Config, data: np.ndarray, value_range: float = 0.0) -> None:

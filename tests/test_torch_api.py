@@ -253,6 +253,30 @@ def test_nonfinite_and_subnormal_values():
     _same_decode(blob)
 
 
+@pytest.mark.parametrize("nthreads", [0, 4])
+@pytest.mark.parametrize("first", [False, True])
+def test_range_bound_passes_over_nan_as_the_engine(first, nthreads):
+    """A range-relative bound over a field holding NaN: the host engine's
+    range, like the reference's (Statistic.hpp:11-20), passes over NaN
+    unless the first element is NaN. The port resolves the same bound, as a
+    single field and over the chunks of an OpenMP-format archive (the JAX
+    package's numpy max and min give NaN there)."""
+    x = _field((16, 12, 10), seed=14)
+    x[9, 3, 4] = np.nan
+    if first:
+        x[0, 0, 0] = np.nan
+    blob = _three_way(x, lambda ns: ns.Config(cmprAlgo=ns.ALGO.INTERP, errorBoundMode=ns.EB.REL,
+                                              relErrorBound=1e-3, openmp=bool(nthreads)),
+                      jax=False, nthreads=nthreads)
+    eb = szp.open_archive(blob)[0].absErrorBound
+    if nthreads:
+        eb = P.Config.load(szp.open_archive(blob)[1], 4)[0].absErrorBound
+    assert np.isnan(eb) == first
+    if not first:
+        assert eb == 1e-3 * float(np.nanmax(x) - np.nanmin(x))
+    _same_decode(blob)
+
+
 @pytest.mark.parametrize("algo", [ALGO.NOPRED, ALGO.BIOMDXTC, ALGO.BIOMD])
 def test_other_algorithms_round_trip(algo):
     """NOPRED, BIOMDXTC and BIOMD, which raised NotImplementedError before

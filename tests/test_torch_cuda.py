@@ -641,3 +641,39 @@ def test_tuner_decisions_on_the_card(dev, eb):
         runtime.tune_interp(b, data.copy())
         for f in ("cmprAlgo", "interpAlgo", "interpDirection", "interpAlpha", "interpBeta"):
             assert float(getattr(a, f)) == float(getattr(b, f)), (name, f)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype,mode", [(np.float32, "ABS"), (np.float64, "ABS"),
+                                        (np.float32, "REL")])
+def test_serving_pipeline_on_the_card(dev, monkeypatch, depth, dtype, mode):
+    """compress_batch's streamed pipeline at depth 1-4 gives, field by field,
+    the archives of single-field compress on the card (at ABS a noise field
+    in the middle and last take the lossless route), each field's device half on
+    a stream of its own; decompress_batch returns the stack on the card,
+    bit-equal to single-field decompress."""
+    from sz3_tpu_torch import serving
+
+    rng = np.random.default_rng(depth)
+    fields = np.cumsum(rng.standard_normal((6, 33, 34, 35)), axis=-1).astype(dtype) * 0.1
+    fields[2] = rng.uniform(-1e4, 1e4, fields[2].shape)
+    fields[5] = rng.uniform(-1e4, 1e4, fields[5].shape)
+    conf = Config(cmprAlgo=ALGO.INTERP, absErrorBound=1e-3, relErrorBound=1e-3,
+                  errorBoundMode=getattr(szp.EB, mode))
+    streams = []
+    real = tde.pack_device
+    monkeypatch.setattr(tde, "pack_device", lambda c, x: streams.append(
+        torch.cuda.current_stream().cuda_stream) or real(c, x))
+    monkeypatch.setattr(serving, "DEPTH", depth)
+    blobs = serving.compress_batch(fields, conf, device="cuda")
+    assert len(streams) == 6 and len(set(streams)) == depth
+    assert torch.cuda.current_stream().cuda_stream not in streams
+    monkeypatch.setattr(tde, "pack_device", real)
+    for i, f in enumerate(fields):
+        assert blobs[i] == szp.compress(f, conf.copy(), device="cuda"), f"field {i}"
+    if mode == "ABS":
+        assert [szp.open_archive(b)[0].cmprAlgo for b in blobs].count(ALGO.LOSSLESS) == 2
+    out = serving.decompress_batch(blobs, device="cuda")
+    assert out.device.type == "cuda" and tuple(out.shape) == fields.shape
+    for i, b in enumerate(blobs):
+        assert torch.equal(out[i], szp.decompress(b, device="cuda")[0])

@@ -55,6 +55,21 @@ for method in ("ADP", "VQT", "MT"):
     mo = mdz.mdz_decompress(mb, device="cpu").numpy()
     assert mb == mdz.engine_compress(lat, None, 1e-3, 10, mdz.METHODS[method], 1024)
     assert mo.tobytes() == mdz.engine_decompress(mb).tobytes()
+from sz3_tpu_torch import serving
+from sz3_tpu_torch.parallel import sharded
+st = np.stack([x, x * 2])
+bb = serving.compress_batch(st, szp.Config(absErrorBound=1e-3), device="cpu")
+assert bb[1] == szp.compress(st[1], szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-3),
+                             device="cpu")
+assert tuple(serving.decompress_batch(bb, device="cpu").shape) == st.shape
+import os, tempfile
+with tempfile.TemporaryDirectory() as td:
+    sharded.init_file_group(os.path.join(td, "store"), 0, 1)
+    pc = szp.Config(cmprAlgo=szp.ALGO.INTERP, absErrorBound=1e-3, openmp=True)
+    pl = sharded.sharded_encode_payload(pc, x, device="cpu")
+    po = sharded.sharded_decode_payload(szp.Config(dims=x.shape, openmp=True), pl, device="cpu")
+    assert float(np.abs(po.numpy() - x).max()) <= 1e-3
+    sharded.dist.destroy_process_group()
 from sz3_tpu_torch.algos import tuner
 tuned = []
 real_tune = tuner.tune
