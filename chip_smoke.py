@@ -97,7 +97,29 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      field at ABS and REL 1e-3: one NCCL rank in this process and 4 gloo
      ranks sharing cuda:0 (spawned), each payload sha256-equal to
      compress_chunked and to the host engine at as many chunks, each rank's
-     decode bit-equal to the engine's; dryrun_multichip(4).
+     decode bit-equal to the engine's; dryrun_multichip(4);
+ 10. the user-facing tools: the sz3t-torch CLI (sz3_tpu_torch.cli.main, in
+     this process) on nyx_like(512) written raw to a file, at ABS 1e-3 with
+     -a: its archive sha256-equal to the port's compress(...,
+     set_datatype=False) and to phase 4's host-engine archive, its decoded
+     file bit-equal to the engine's decode, the -a report's numbers held to
+     a numpy float64 verify on the host (min, max and max_abs_err exactly,
+     the rest to a relative 1e-12); K1, K2+K3, the count and the write phase
+     held against their plain versions on the CLI's own stream (captured);
+     the CLI's compress and decompress walls beside compress()'s and
+     decompress()'s inside them, with the file I/O and the output's copy to
+     the host timed alone; REL 1e-3 at 256^3 against compress() and the
+     engine; `python -m sz3_tpu_torch.cli` at 256^3 in a fresh process, its
+     cold wall; sz3t-torch-mdz (mdz.main) on phase 7's first 100 lattice
+     frames against mdz_compress and the engine; pysz at 256^3 against
+     compress() and the engine, round trip; verify on the card at 512^3
+     beside numpy on the host, with its peak memory; profile_entropy at
+     256^3 (every stage), scaling_bench's rank scaling (1 and 2 gloo ranks
+     spawned on the card, a 64^3 REL field) and its per-chunk model at 256^3
+     (n = 1, 2, 4, 8); the HDF5 filter plugin built (started on a thread beside the
+     engine's build; HDF5 itself is held by the CPU tests). The launches of
+     hist_literals, pack_bits, huff_scan, huff_write and mdz_frames are
+     counted over the tools' runs, each at least once.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -108,11 +130,16 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import itertools
 import json
+import math
+import os
 import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -198,6 +225,37 @@ def _phase9_rank(rank: int, world: int, store: str, out: str, field: str, modes)
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
 
 
+def np_verify(original, decoded) -> dict:
+    """The distortion quantities of sz3_tpu_torch.stats.verify in numpy
+    float64 on the host, by the formulas of the reference's
+    Statistic.hpp:80-140 (as the JAX package computes them)."""
+    import numpy as np
+
+    ori = np.asarray(original, dtype=np.float64).ravel()
+    dec = np.asarray(decoded, dtype=np.float64).ravel()
+    mn, mx = float(ori.min()), float(ori.max())
+    rng = mx - mn
+    err = dec - ori
+    abs_err = np.abs(err)
+    max_abs = float(abs_err.max())
+    nz = ori != 0
+    max_pw = float((abs_err[nz] / np.abs(ori[nz])).max()) if nz.any() else 0.0
+    mse = float((err * err).mean())
+    m1, m2 = float(ori.mean()), float(dec.mean())
+    prod = float(((ori - m1) * (dec - m2)).mean())
+    s1 = math.sqrt(float(((ori - m1) ** 2).mean()))
+    s2 = math.sqrt(float(((dec - m2) ** 2).mean()))
+    norm_err = math.sqrt(float((err * err).sum()))
+    l2 = math.sqrt(float((dec * dec).sum()))
+    return {"min": mn, "max": mx, "value_range": rng, "max_abs_err": max_abs,
+            "max_rel_err": max_abs / rng if rng > 0 else 0.0, "max_pw_rel_err": max_pw,
+            "psnr": 20 * math.log10(rng) - 10 * math.log10(mse) if mse > 0 and rng > 0
+            else math.inf,
+            "nrmse": math.sqrt(mse) / rng if rng > 0 else 0.0, "norm_err": norm_err,
+            "norm_err_norm": norm_err / l2 if l2 > 0 else 0.0,
+            "ac_eff": prod / s1 / s2 if s1 > 0 and s2 > 0 else 0.0}
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -228,6 +286,19 @@ def main() -> int:
 
     from sz3_tpu_torch import build
 
+    # the HDF5 filter plugin's g++ build, beside the engine's; joined in phase 10
+    h5z = {}
+
+    def build_plugin():
+        t0 = time.perf_counter()
+        try:
+            h5z["path"] = build.build_h5z()
+        except RuntimeError as e:       # reported, and failed on, in phase 10
+            h5z["error"] = str(e)
+        h5z["s"] = time.perf_counter() - t0
+
+    h5z_thread = threading.Thread(target=build_plugin, daemon=True)
+    h5z_thread.start()
     t = time.perf_counter()
     runtime = build.host_engine()
     print(f"host engine ready: {time.perf_counter() - t:.2f} s", flush=True)
@@ -2069,7 +2140,7 @@ def main() -> int:
         got = case7(f"MDZ {method} 100x{TRAJ_ATOMS}x3 lattice", head,
                     dict(rel_eb=1e-3, method=method), capture=method == "VQT")
         mdz_args.update({k: v for k, v in got.items() if v is not None})
-    del lattice, head
+    del lattice         # phase 10 runs sz3t-torch-mdz on `head`
     case7(f"MDZ ADP {TRAJ_FRAMES}x{TRAJ_ATOMS}x3 water-like", water,
           dict(rel_eb=1e-3, batch_size=100), stages=False)
     del water
@@ -2449,6 +2520,235 @@ def main() -> int:
         check(p9_launches[k] >= 1, f"kernel {k} was not launched in phase 9")
     stamp("phase 9 done")
 
+    # ---- phase 10: the user-facing tools ----------------------------------------------
+    # the CLI, sz3t-torch-mdz and pysz as a user runs them; the kernels' launches
+    # counted over those runs alone (zeroed just before each, read just after)
+    from sz3_tpu_torch import cli as pcli
+    from sz3_tpu_torch import pysz as ppysz
+    from sz3_tpu_torch.tools import profile_entropy, scaling_bench
+
+    p10_counters = dict(counters, mdz_frames=md.mdz_frames)
+    p10_launches = dict.fromkeys(p10_counters, 0)
+
+    def drive10(fn):
+        for w in p10_counters.values():
+            w.launches = 0
+        out = sync_time(fn)
+        seen = {k: w.launches for k, w in p10_counters.items()}
+        for k, v in seen.items():
+            p10_launches[k] += v
+        return out, seen
+
+    def quiet(fn):
+        """fn's standard output kept (and echoed, indented): (result, text)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        text = buf.getvalue()
+        print("    | " + text.rstrip().replace("\n", "\n    | "), flush=True)
+        return out, text
+
+    def cli(argv):
+        rc, text = quiet(lambda: pcli.main([str(a) for a in argv]))
+        check(rc == 0, f"sz3t-torch {' '.join(map(str, argv))} returned {rc}")
+        return text
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    tmp10 = tempfile.TemporaryDirectory()
+    tdir = Path(tmp10.name)
+    x512 = fields[512]
+    dims512 = ["-3", *map(str, reversed(x512.shape))]
+    src512 = tdir / "nyx512.f32"
+    _, write_in_s = sync_time(lambda: x512.tofile(src512))
+    blob512_native = native[512][0]
+    ref512 = native_decompress(blob512_native)
+
+    # the checked run: compress, decompress and -a in one command line; the
+    # report's Distortion kept from the CLI's own verify
+    kept = {}
+    real_verify = pcli.verify
+
+    def keep_verify(o, d):
+        kept["d"] = real_verify(o, d)
+        return kept["d"]
+
+    pcli.verify = keep_verify
+    try:
+        with captured(de, "encode_payload_device") as enc10, \
+                captured(dd, "decode_payload_device") as dec10:
+            (text, cli_s), seen = drive10(lambda: cli(
+                ["-f", "-i", src512, "-z", tdir / "a.sz", "-o", tdir / "a.out", *dims512,
+                 "-M", "ABS", EB, "-a"]))
+    finally:
+        pcli.verify = real_verify
+    check(seen["hist_literals"] == 1 and seen["pack_bits"] >= 1 and seen["huff_scan"] >= 1
+          and seen["huff_write"] >= 1, f"the CLI at 512^3 launched {seen}")
+    blob_cli = (tdir / "a.sz").read_bytes()
+    blob_api = szp.compress(x512, szp.Config(absErrorBound=EB), device="cuda",
+                            set_datatype=False)
+    check(sha(blob_cli) == sha(blob_api) == sha(blob512_native),
+          "the CLI's 512^3 archive differs from compress()'s or the host engine's")
+    dec_host = np.fromfile(tdir / "a.out", dtype=np.float32)
+    (tdir / "a.out").unlink()
+    check(dec_host.tobytes() == ref512.tobytes(),
+          "the CLI's 512^3 decode is not bit-equal to the host engine's")
+    _, np_s = sync_time(lambda: kept.update(h=np_verify(x512, dec_host)))
+    d, h = kept["d"], kept["h"]
+    check(d.report() in text, "the CLI printed another report than its verify's")
+    for f, want in h.items():
+        got = getattr(d, f)
+        if f in ("min", "max", "value_range", "max_abs_err", "max_rel_err"):
+            ok = got == want
+        else:
+            ok = got == want or abs(got - want) <= 1e-12 * abs(want)
+        check(ok, f"-a's {f} {got!r} != numpy float64's {want!r}")
+    print(f"sz3t-torch at 512^3 ABS {EB} with -a ({cli_s:.3f} s, the first CLI run): archive "
+          f"sha256 == compress(set_datatype=False) == host engine {sha(blob_cli)[:16]}; decoded "
+          f"file bit-equal to the engine's decode; -a's min, max, max_abs_err equal numpy "
+          f"float64's, the rest within 1e-12 (max err {d.max_abs_err:.3e}, PSNR "
+          f"{d.psnr:.4f}); launches {seen}", flush=True)
+    c_conf, c_x = enc10["args"][:2]
+    hold_path("CLI 512^3", stream_of(c_x, c_conf), c_conf, dec10["args"], algo=2)
+    del c_x, enc10, dec10
+
+    # walls: the CLI's compress and decompress, each a run of its own, with
+    # compress() / decompress() inside them; the file I/O and the output's copy
+    # to the host timed alone on the same files
+    with timed([(pcli, "compress", "compress()"), (pcli, "decompress", "decompress()")]) as st:
+        (_, cli_enc_s), _ = drive10(lambda: cli(["-f", "-i", src512, "-z", tdir / "b.sz",
+                                                 *dims512, "-M", "ABS", EB]))
+        (_, cli_dec_s), _ = drive10(lambda: cli(["-f", "-z", tdir / "b.sz", "-o", tdir / "b.out",
+                                                 *dims512]))
+    check((tdir / "b.sz").read_bytes() == blob_cli, "the warm CLI archive differs")
+    (tdir / "b.out").unlink()
+    _, read_in_s = sync_time(lambda: np.fromfile(src512, dtype=np.float32))
+    out_dev, _ = szp.decompress(blob_cli, device="cuda", dtype=np.float32)
+    host, d2h_s = sync_time(lambda: out_dev.cpu().numpy())
+    _, write_out_s = sync_time(lambda: host.tofile(tdir / "c.out"))
+    (tdir / "c.out").unlink()
+    enc_api, dec_api = st["compress()"][0], st["decompress()"][0]
+    print(f"  CLI walls at 512^3 (warm): compress {cli_enc_s:.3f} s, of which compress() "
+          f"{enc_api:.3f} s; reading the {x512.nbytes / 1e6:.0f} MB input alone {read_in_s:.3f} s "
+          f"(writing it {write_in_s:.3f} s); the rest {cli_enc_s - enc_api - read_in_s:.3f} s",
+          flush=True)
+    print(f"  decompress {cli_dec_s:.3f} s, of which decompress() {dec_api:.3f} s; the output's "
+          f"copy to the host alone {d2h_s:.3f} s, writing it alone {write_out_s:.3f} s; the rest "
+          f"{cli_dec_s - dec_api - d2h_s - write_out_s:.3f} s", flush=True)
+    del host
+
+    # verify on the card at 512^3 beside numpy float64 on the host
+    x_dev = torch.from_numpy(x512).to(dev)
+    szp.verify(x_dev, out_dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d_card, v_s = sync_time(lambda: szp.verify(x_dev, out_dev))
+    v_peak = torch.cuda.max_memory_allocated() - held
+    check(d_card == d, "verify on the card differs from the CLI's")
+    print(f"  verify at 512^3: on the card {v_s:.3f} s (peak {v_peak / 2**20:.1f} MiB above "
+          f"its two inputs, {v_peak / x512.nbytes:.3f} bytes a field byte); numpy float64 on "
+          f"the host {np_s:.3f} s", flush=True)
+    del x_dev, out_dev, ref512, dec_host
+    torch.cuda.empty_cache()
+    stamp("CLI 512^3 done")
+
+    # REL at 256^3, in this process; then ABS in a fresh process
+    x256 = fields[256]
+    src256 = tdir / "nyx256.f32"
+    x256.tofile(src256)
+    dims256 = ["-3", *map(str, reversed(x256.shape))]
+    (_, rel_s), seen = drive10(lambda: cli(["-f", "-i", src256, "-z", tdir / "r.sz", "-o",
+                                            tdir / "r.out", *dims256, "-M", "REL", "1e-3"]))
+    rel_conf = szp.Config(errorBoundMode=szp.EB.REL, relErrorBound=1e-3)
+    blob_rel = native_compress(x256, rel_conf)
+    check((tdir / "r.sz").read_bytes() == blob_rel == szp.compress(
+        x256, rel_conf, device="cuda", set_datatype=False),
+        "the CLI's REL 256^3 archive differs from compress()'s or the host engine's")
+    check((tdir / "r.out").read_bytes() == native_decompress(blob_rel).tobytes(),
+          "the CLI's REL 256^3 decode is not the engine's")
+    print(f"sz3t-torch at 256^3 REL 1e-3: {rel_s:.3f} s; archive == compress() == host engine, "
+          f"decode bit-equal; launches {seen}", flush=True)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sz3_tpu_torch.cli", "-f", "-i", str(src256),
+                           "-z", "s.sz", "-o", "s.out", *dims256, "-M", "ABS", str(EB)],
+                          capture_output=True, text=True, timeout=600, cwd=tdir,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    sub_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"python -m sz3_tpu_torch.cli failed:\n{proc.stderr[-2000:]}")
+    blob256_native = native[256][0]
+    ref256 = native_decompress(blob256_native)
+    check((tdir / "s.sz").read_bytes() == blob256_native
+          and (tdir / "s.out").read_bytes() == ref256.tobytes(),
+          "python -m sz3_tpu_torch.cli at 256^3: archive or decode differs from the engine's")
+    print(f"python -m sz3_tpu_torch.cli at 256^3 ABS {EB} in a fresh process: {sub_s:.2f} s cold "
+          f"(interpreter, imports, CUDA start-up, compress, decompress); archive and decode "
+          f"the engine's", flush=True)
+    stamp("CLI 256^3 done")
+
+    # sz3t-torch-mdz on phase 7's first 100 lattice frames, ADP at REL 1e-3
+    traj_path = tdir / "lattice100.f32"
+    head.tofile(traj_path)
+    (_, mdz_s), seen = drive10(lambda: quiet(lambda: mdz.main(
+        [str(traj_path), "-3", *map(str, head.shape), "-r", "1e-3", "-z",
+         str(tdir / "m.mdz"), "-o", str(tdir / "m.out")])))
+    check(seen["mdz_frames"] >= 1, f"sz3t-torch-mdz launched {seen}")
+    blob_m = (tdir / "m.mdz").read_bytes()
+    check(blob_m == mdz.mdz_compress(head, rel_eb=1e-3, device="cuda")
+          == mdz.engine_compress(head, None, 1e-3, 0, mdz.METHODS["ADP"], 1024),
+          "sz3t-torch-mdz's archive differs from mdz_compress's or the engine's")
+    check((tdir / "m.out").read_bytes() == mdz.engine_decompress(blob_m).tobytes(),
+          "sz3t-torch-mdz's decode is not the engine's")
+    print(f"sz3t-torch-mdz, {' x '.join(map(str, head.shape))} lattice frames, ADP REL 1e-3: "
+          f"{mdz_s:.3f} s; "
+          f"archive == mdz_compress == engine, decode bit-equal; methods "
+          f"{mdz_methods(blob_m)}; launches {seen}", flush=True)
+    del head
+
+    # pysz at 256^3
+    pconf = ppysz.szConfig(x256.shape)
+    pconf.absErrorBound = EB
+    ((parr, ratio), pz_s), seen = drive10(lambda: ppysz.sz.compress(x256, pconf))
+    check(parr.tobytes() == blob256_native == szp.compress(x256, szp.Config(absErrorBound=EB),
+                                                            device="cuda"),
+          "pysz's archive differs from compress(set_datatype=True)'s or the engine's")
+    ((pout, _), pd_s), seen_d = drive10(lambda: ppysz.sz.decompress(parr, np.float32, x256.shape))
+    check(pout.tobytes() == ref256.tobytes(), "pysz's decode is not the engine's")
+    max_diff, psnr, _ = ppysz.sz.verify(x256, pout)
+    check(max_diff <= EB, f"pysz round trip max error {max_diff}")
+    print(f"pysz at 256^3: compress {pz_s:.3f} s (ratio {ratio:.2f}), decompress {pd_s:.3f} s; "
+          f"bytes == compress() == engine; round trip max err {max_diff:.3e}, PSNR {psnr:.2f}; "
+          f"launches {seen} / {seen_d}", flush=True)
+    del ref256, pout, parr
+
+    # the profiling tools at 256^3
+    prof = profile_entropy.main(["--n", "256", "--reps", "3"])
+    check(len(prof["ms"]) == 4 and all(v > 0 for v in prof["ms"].values()),
+          f"profile_entropy: {prof['ms']}")
+    print(f"profile_entropy {prof['n']}^3 ({prof['where']}, best of 3): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in prof["ms"].items()) + f"; code lengths max "
+        f"{prof['tree']['max_len']}, mean {prof['tree']['mean_len']:.2f} bits", flush=True)
+    chunks = scaling_bench.chunk_model(256)
+    check([r["n_way_split"] for r in chunks] == [1, 2, 4, 8], "scaling_bench's chunk model")
+    ranks = scaling_bench.rank_scaling((1, 2), 64)
+    check([r["ranks"] for r in ranks] == [1, 2] and all(
+        d.startswith("cuda") for r in ranks for d in r["devices"]),
+        f"scaling_bench's rank scaling: {ranks}")
+    tmp10.cleanup()
+
+    h5z_thread.join()
+    check("path" in h5z, f"build_h5z failed: {h5z.get('error', '')[-2000:]}")
+    import importlib.util
+    print(f"HDF5 filter plugin built ({h5z['s']:.1f} s on its thread beside the engine's build): "
+          f"{Path(h5z['path']).name}; h5py is "
+          f"{'present' if importlib.util.find_spec('h5py') else 'absent'} here, so HDF5 itself "
+          f"is held only by the CPU tests (tests/test_torch_h5.py)", flush=True)
+    print(f"phase 10 launches {p10_launches}", flush=True)
+    for k in p10_counters:
+        check(p10_launches[k] >= 1, f"kernel {k} was not launched in phase 10")
+    stamp("phase 10 done")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
@@ -2494,6 +2794,7 @@ def main() -> int:
         r["phase7_launches"] = p7_launches.get(r["name"], 0)
         r["phase8_launches"] = p8_launches.get(r["name"], 0)
         r["phase9_launches"] = p9_launches.get(r["name"], 0)
+        r["phase10_launches"] = p10_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -66,10 +66,10 @@ def _huffman_table(offset: int, freq: np.ndarray):
     return codes.astype(np.uint64), lens, tree
 
 
-def _tree_and_tables(hist: torch.Tensor, radius: int, num: int, device):
-    """Exact histogram, on the host -> reference Huffman tree -> code tables
-    indexed by symbol index. Returns (tree bytes, total bits, codes, lens)
-    with the tables on `device` (codes int64, lens int32)."""
+def symbol_freq(hist: torch.Tensor, radius: int, num: int):
+    """K1's exact histogram (on the host) as the reference Huffman coder's
+    input: (min symbol, max symbol, freq) with freq[s - min] the count of
+    symbol s and a trailing zero slot (the reference convention)."""
     h = hist.numpy().astype(np.int64)
     if h[-1]:
         raise ValueError(f"{h[-1]} bins outside [0, {2 * radius}): not a quantizer's output")
@@ -79,9 +79,16 @@ def _tree_and_tables(hist: torch.Tensor, radius: int, num: int, device):
         raise RuntimeError(f"histogram total {total} != num {num}")
     present = np.flatnonzero(by_sym)
     lo, hi = int(present[0]), int(present[-1])
-    # the reference convention: offset = min symbol, a trailing zero slot
     freq = np.zeros(hi - lo + 2, np.uint64)
     freq[:-1] = by_sym[lo:hi + 1]
+    return lo, hi, freq
+
+
+def _tree_and_tables(hist: torch.Tensor, radius: int, num: int, device):
+    """Exact histogram, on the host -> reference Huffman tree -> code tables
+    indexed by symbol index. Returns (tree bytes, total bits, codes, lens)
+    with the tables on `device` (codes int64, lens int32)."""
+    lo, hi, freq = symbol_freq(hist, radius, num)
     codes, lens, tree = _huffman_table(lo, freq)
     total_bits = int((freq.astype(np.int64) * lens.astype(np.int64)).sum())
 

@@ -62,6 +62,16 @@ def _device(device) -> torch.device:
     return dev
 
 
+def on_device(x, device=None) -> torch.Tensor:
+    """`x` (a tensor or an array) as a tensor on `device`. device=None keeps
+    a tensor where it is and puts an array on the CUDA card (which raises
+    without one)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(_device(device))
+    return torch.from_numpy(np.ascontiguousarray(x)).to(_device("cuda" if device is None
+                                                                else device))
+
+
 def archive_conf(data: np.ndarray, conf: Optional[Config] = None,
                  set_datatype: bool = True) -> Tuple[Config, int]:
     """The Config an archive of `data` starts from (dims and, unless

@@ -20,7 +20,11 @@ both named on the compiler's command line. The engine then links the
 machine's own zstd, so archives stay the ones the engine writes everywhere
 else.
 
-Both libraries go to ``_build/`` under a name that carries a hash of their
+HDF5 filter plugin: ``csrc/h5z_szt.cpp`` (the port's copy of
+``sz3_tpu/native/h5z_szt.cpp``) over the engine's headers, compiled by
+``g++`` with the engine's flags and zstd as above (``build_h5z``).
+
+The libraries go to ``_build/`` under a name that carries a hash of their
 sources, so an edited source is rebuilt and a stale build is never loaded. A
 build writes to a temporary name and renames, under a file lock, so that
 processes that start together build once.
@@ -36,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -213,9 +218,14 @@ def _zstd_flags() -> List[str]:
     link_dir = BUILD_DIR / "zstd_link"
     link_dir.mkdir(parents=True, exist_ok=True)
     link = link_dir / "libzstd.so"
-    if link.is_symlink() or link.exists():
-        link.unlink()
-    link.symlink_to(_zstd_runtime_library())
+    target = _zstd_runtime_library()
+    # the engine's and the plugin's builds may run at once: the link is
+    # replaced atomically, and only when it points elsewhere
+    if not (link.is_symlink() and os.readlink(link) == target):
+        tmp = link_dir / f"libzstd.so.{os.getpid()}.{threading.get_ident()}"
+        tmp.unlink(missing_ok=True)
+        tmp.symlink_to(target)
+        os.replace(tmp, link)
     return ["-I", str(CSRC / "zstd"), "-L", str(link_dir)]
 
 
@@ -239,6 +249,41 @@ def build_engine(verbose: bool = False) -> Path:
             raise RuntimeError(f"host engine build failed:\n{proc.stderr}")
         os.replace(tmp, out)
         _drop_stale("libszt_host-*.so", out)
+    return out
+
+
+# ---- HDF5 filter plugin -----------------------------------------------------------
+
+H5Z_SRC = CSRC / "h5z_szt.cpp"
+
+
+def h5z_lib_path() -> Path:
+    _, hdr = _engine_sources()
+    return BUILD_DIR / f"libh5zszt-{_hash([H5Z_SRC] + hdr, CXXFLAGS)}.so"
+
+
+def build_h5z(verbose: bool = False) -> Path:
+    """Compile the HDF5 filter plugin (filter id 32024, ``csrc/h5z_szt.cpp``
+    over the engine's headers) unless a build of the current sources exists.
+    The plugin compresses each chunk with the engine inside libhdf5, on the
+    host; it links zstd as the engine does."""
+    out = h5z_lib_path()
+    if out.exists():
+        return out
+    with _build_lock("h5z"):
+        if out.exists():
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_cxx(), *CXXFLAGS, "-I", str(ENGINE_SRC), *_zstd_flags(), str(H5Z_SRC),
+               "-o", str(tmp), "-lzstd", "-ldl"]
+        if verbose:
+            print("h5z plugin build:", " ".join(cmd), flush=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"h5z plugin build failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+        _drop_stale("libh5zszt-*.so", out)
     return out
 
 

@@ -8,6 +8,9 @@ byte-identical to the host engine's.
     blob = mdz_compress(traj, rel_eb=1e-3, batch_size=100)          # on the card
     out = mdz_decompress(blob)                                      # torch.Tensor
 
+The reference tool's command line is ``main`` (``python -m sz3_tpu_torch.mdz``,
+console script ``sz3t-torch-mdz``).
+
 ``device`` defaults to ``"cuda"``: VQ, VQT and MT run on the current CUDA
 device (algos/mdz_torch.py, the frame recurrence in csrc/mdz_frames.cu), and
 the call raises when there is none. ``device="cpu"`` has to be asked for,
@@ -234,3 +237,57 @@ def _lammps_lib():
                                           u64]
         lib._lammps_bound = True
     return lib
+
+
+def main(argv=None):
+    """CLI mirroring the reference `mdz` tool (tools/mdz/mdz.cpp:4-10):
+    mdz file -2 n_frames n_atoms -r reb [batch] [method] [quantbin]
+    (counterpart of sz3_tpu/mdz.py:main), on --device (default cuda)."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="sz3t-torch-mdz", description=main.__doc__)
+    p.add_argument("file")
+    p.add_argument("-1", dest="d1", nargs=1, type=int, metavar="N")
+    p.add_argument("-2", dest="d2", nargs=2, type=int, metavar=("F", "A"))
+    p.add_argument("-3", dest="d3", nargs=3, type=int, metavar=("F", "A", "X"))
+    p.add_argument("-r", dest="reb", type=float, help="relative error bound")
+    p.add_argument("-a", dest="aeb", type=float, help="absolute error bound")
+    p.add_argument("-b", dest="batch", type=int, default=0)
+    p.add_argument("-m", dest="method", default="ADP", choices=list(METHODS))
+    p.add_argument("-q", dest="quantbin", type=int, default=1024)
+    p.add_argument("-z", dest="out", help="write archive here")
+    p.add_argument("-o", dest="dec", help="write decompressed output here")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # reference positional tail: [batch_size [method [quantbin]]] (mdz.cpp:48-61)
+    p.add_argument("tail", nargs="*", type=int)
+    a = p.parse_args(argv)
+    if a.tail:
+        a.batch = a.tail[0]
+        if len(a.tail) > 1:
+            a.method = METHOD_NAMES.get(a.tail[1], "ADP")
+        if len(a.tail) > 2:
+            a.quantbin = a.tail[2]
+
+    shape = tuple(a.d1 or a.d2 or a.d3 or ())
+    if not shape:
+        p.error("give -1/-2/-3 dims")
+    dev = _device(a.device)
+    data = np.fromfile(a.file, dtype=np.float32, count=int(np.prod(shape))).reshape(shape)
+    blob = mdz_compress(data, abs_eb=a.aeb, rel_eb=a.reb, batch_size=a.batch,
+                        method=a.method, quantbin=a.quantbin, device=dev)
+    dec = mdz_decompress(blob, device=dev)
+    ratio = data.nbytes / len(blob)
+    err = float((dec.to(torch.float64) - torch.from_numpy(data).to(dev, torch.float64))
+                .abs().max())
+    print(f"Batch={a.batch or shape[0]}")
+    print(f"Compression ratio={ratio:.3f}")
+    print(f"Max error={err:.6g}")
+    if a.out:
+        with open(a.out, "wb") as f:
+            f.write(blob)
+    if a.dec:
+        dec.cpu().numpy().tofile(a.dec)
+
+
+if __name__ == "__main__":
+    main()

@@ -217,3 +217,25 @@ def test_blockwise_sweep_types_equal():
     from sz3_tpu_torch.ops import blockwise_layout as pbl
 
     assert (pbl.T_L1, pbl.T_L2, pbl.T_KEEP) == (jwf.T_L1, jwf.T_L2, jwf.T_KEEP)
+
+
+# the port's copies of the HDF5 filter plugin and the C API header
+# (sz3_tpu_torch/csrc/), and why they differ where they do
+PLUGIN_DIFFERS = {
+    "include/sz3c.h": "its opening comment names the port's engine library and how to build it",
+}
+
+
+@pytest.mark.parametrize("name", ["h5z_szt.cpp", "include/sz3c.h"])
+def test_plugin_and_header_copies(name):
+    mine = (ROOT / "sz3_tpu_torch" / "csrc" / name).read_text().splitlines()
+    orig = (NATIVE / name).read_text().splitlines()
+    if name not in PLUGIN_DIFFERS:
+        assert mine == orig
+        return
+    # only the comment before the include guard differs
+    guard = next(i for i, ln in enumerate(orig) if ln.startswith("#ifndef"))
+    mguard = next(i for i, ln in enumerate(mine) if ln.startswith("#ifndef"))
+    assert mine[mguard:] == orig[guard:]
+    assert mine[:mguard] != orig[:guard]
+    assert all(ln.startswith(("/*", " *")) for ln in mine[:mguard])

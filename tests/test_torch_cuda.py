@@ -677,3 +677,83 @@ def test_serving_pipeline_on_the_card(dev, monkeypatch, depth, dtype, mode):
     assert out.device.type == "cuda" and tuple(out.shape) == fields.shape
     for i, b in enumerate(blobs):
         assert torch.equal(out[i], szp.decompress(b, device="cuda")[0])
+
+
+def _cli_field(tmp_path, shape=(24, 40, 64), seed=9):
+    x = (np.cumsum(np.random.default_rng(seed).standard_normal(shape), axis=-1) * 0.1
+         ).astype(np.float32)
+    x.tofile(tmp_path / "in.dat")
+    return x, ["-3", *map(str, reversed(shape))]
+
+
+@pytest.mark.parametrize("bound", [["-M", "ABS", "1e-3"], ["-M", "REL", "1e-3"]])
+def test_cli_on_the_card(dev, tmp_path, capsys, bound):
+    """sz3t-torch on its default device writes the host engine's archive
+    (--backend native) and decodes it bit-equal to the engine; -a's report
+    on the card is the host's: its extremes exactly, its sums to the digits
+    printed."""
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.cli import main
+
+    x, dims = _cli_field(tmp_path)
+    src = str(tmp_path / "in.dat")
+    assert main(["-f", "-i", src, *dims, *bound, "-z", str(tmp_path / "c.sz"), "-o",
+                 str(tmp_path / "c.out"), "-a"]) == 0
+    card = capsys.readouterr().out
+    assert main(["-f", "-i", src, *dims, *bound, "-z", str(tmp_path / "n.sz"), "-o",
+                 str(tmp_path / "n.out"), "--backend", "native", "--device", "cpu", "-a"]) == 0
+    host = capsys.readouterr().out
+    blob = (tmp_path / "c.sz").read_bytes()
+    assert blob == (tmp_path / "n.sz").read_bytes()
+    assert (tmp_path / "c.out").read_bytes() == (tmp_path / "n.out").read_bytes()
+    conf, payload = szp.open_archive(blob)
+    assert (tmp_path / "c.out").read_bytes() == runtime.decompress_payload(conf, payload).tobytes()
+    import re
+
+    def report(text):
+        """The printed lines but times and paths: those of sums (PSNR, NRMSE,
+        normError, acEff) as numbers, the others as text."""
+        exact, sums = [], []
+        for ln in text.splitlines():
+            if "=" not in ln or "time" in ln or "file" in ln:
+                continue
+            if any(k in ln for k in ("PSNR", "normError", "acEff")):
+                sums += [float(v) for v in re.findall(r"=\s*([-+.\dEe]+)", ln)]
+            else:
+                exact.append(ln)
+        return exact, sums
+
+    (ce, cs), (he, hs) = report(card), report(host)
+    assert ce == he and len(ce) == 6 and len(cs) == len(hs) == 5
+    # the sums agree to 1e-12 (test_torch_tools.py), so the printed values
+    # differ by at most one unit of the last place %f prints
+    assert all(abs(a - b) <= 1e-6 + 1e-9 * abs(b) for a, b in zip(cs, hs)), (cs, hs)
+
+
+def test_tools_on_the_card(dev, tmp_path):
+    """verify, pysz and the preprocessors on the card agree with their CPU
+    runs (verify and the wavelet to the tolerances of test_torch_tools.py)."""
+    from sz3_tpu_torch import preprocess, pysz
+
+    x, _ = _cli_field(tmp_path)
+    y = x + np.float32(1e-4) * np.sin(np.arange(x.size, dtype=np.float32)).reshape(x.shape)
+    a, b = szp.verify(x, y), szp.verify(x, y, device="cpu")
+    for f in ("min", "max", "max_abs_err"):
+        assert getattr(a, f) == getattr(b, f)
+    for f in ("psnr", "nrmse", "norm_err", "ac_eff", "max_pw_rel_err"):
+        assert abs(getattr(a, f) - getattr(b, f)) <= 1e-12 * abs(getattr(b, f))
+    conf = pysz.szConfig(x.shape)
+    conf.absErrorBound = 1e-3
+    blob, _ = pysz.sz.compress(x, conf)
+    assert np.array_equal(blob, pysz.sz.compress(x, conf, device="cpu")[0])
+    out, _ = pysz.sz.decompress(blob, np.float32, x.shape)
+    assert np.array_equal(out, pysz.sz.decompress(blob, np.float32, x.shape, device="cpu")[0])
+    t = torch.from_numpy(x).to(dev)
+    assert torch.equal(preprocess.transpose(t, (2, 0, 1)).cpu(),
+                       preprocess.transpose(x, (2, 0, 1), device="cpu"))
+    c = preprocess.wavelet_forward(t)
+    assert c.device.type == "cuda"
+    cc = preprocess.wavelet_forward(x, device="cpu")
+    assert float((c.cpu() - cc).abs().max()) <= 1e-12 * float(cc.abs().max())
+    back = preprocess.wavelet_inverse(c, x.size).cpu()
+    assert float((back - torch.from_numpy(x).double().reshape(-1)).abs().max()) < 1e-9
