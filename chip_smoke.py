@@ -119,7 +119,20 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      (n = 1, 2, 4, 8); the HDF5 filter plugin built (started on a thread beside the
      engine's build; HDF5 itself is held by the CPU tests). The launches of
      hist_literals, pack_bits, huff_scan, huff_write and mdz_frames are
-     counted over the tools' runs, each at least once.
+     counted over the tools' runs, each at least once;
+ 11. the customized demo (sz3_tpu_torch.examples.customized_demo) on the
+     card: pattern 1 (INTERP, LINEAR, ABS 1e-3 at 64^3 through compress /
+     decompress) sha256-equal to the host engine's archive and decode, with
+     hist_literals, pack_bits, huff_scan and huff_write each launched over
+     it and each held bit for bit against its plain version on its stream;
+     patterns 2 and 3 (device quantize, host Huffman and zstd) and 4
+     (truncate) byte-equal to the same patterns run on the CPU; each
+     pattern's wall; `python -m sz3_tpu_torch.examples.customized_demo` in a
+     fresh process from the repository root, PYTHONPATH unset: exit 0, its
+     four lines, no jax or sz3_tpu module imported (-X importtime); the
+     single-step INTERP encode (sz3_tpu_torch.entry.entry) at 64^3 on the
+     card bit-equal to entry("cpu"), its cold call and its warm call (CUDA
+     events, the median of REPS) beside the card's name and power limit.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -2749,6 +2762,106 @@ def main() -> int:
         check(p10_launches[k] >= 1, f"kernel {k} was not launched in phase 10")
     stamp("phase 10 done")
 
+    # ---- phase 11: the customized demo's four patterns, the single-step encode ----
+    # the kernels' launches counted over pattern 1 on the card alone (zeroed
+    # just before it, read just after)
+    from sz3_tpu_torch import entry as pentry
+    from sz3_tpu_torch.examples import customized_demo as demo
+
+    with captured(de, "encode_payload_device") as enc11, \
+            captured(dd, "decode_payload_device") as dec11:
+        for w in counters.values():
+            w.launches = 0
+        (blob1, out1), p1_s = sync_time(lambda: demo.pattern1_highlevel_api("cuda"))
+        p11_launches = {k: w.launches for k, w in counters.items()}
+    data1 = demo.make_data()
+    blob1_native = native_compress(data1, szp.Config(
+        cmprAlgo=szp.ALGO.INTERP, interpAlgo=szp.INTERP_ALGO.LINEAR, absErrorBound=EB))
+    check(sha(blob1) == sha(blob1_native),
+          "demo pattern 1: the archive differs from the host engine's")
+    check(out1.cpu().numpy().tobytes() == native_decompress(blob1_native).tobytes(),
+          "demo pattern 1: the decode is not bit-equal to the host engine's")
+    for k in counters:
+        check(p11_launches[k] >= 1, f"kernel {k} was not launched by demo pattern 1")
+    # K1, K2+K3, the count and the write phase against their plain versions
+    # on the demo's own stream (two rescans at 64^3)
+    d_conf, d_x = enc11["args"][:2]
+    hold_path("demo pattern 1 64^3", stream_of(d_x, d_conf), d_conf, dec11["args"], algo=2)
+    del d_x, enc11, dec11
+    (bins2, pay2, out2), p2_s = sync_time(lambda: demo.pattern2_assemble_modules("cuda"))
+    (bins3, pay3), p3_s = sync_time(lambda: demo.pattern3_custom_decomposition("cuda"))
+    (blob4, out4), p4_s = sync_time(demo.pattern4_custom_compressor)
+    walls = [p1_s, p2_s, p3_s, p4_s]
+    t = time.perf_counter()
+    h2 = demo.pattern2_assemble_modules("cpu")
+    h3 = demo.pattern3_custom_decomposition("cpu")
+    h4 = demo.pattern4_custom_compressor()
+    cpu_s = time.perf_counter() - t
+    check(bins2.cpu().equal(h2[0]) and pay2 == h2[1]
+          and out2.cpu().numpy().tobytes() == h2[2].numpy().tobytes(),
+          "demo pattern 2: the card's bins, payload or recovery differ from the CPU's")
+    check(bins3.cpu().equal(h3[0]) and pay3 == h3[1],
+          "demo pattern 3: the card's bins or payload differ from the CPU's")
+    check(blob4 == h4[0] and out4.tobytes() == h4[1].tobytes(),
+          "demo pattern 4: the blob differs from the CPU run's")
+    print("demo on the card, walls (s) of patterns 1-4: " + ", ".join(f"{s:.4f}" for s in walls)
+          + f" (patterns 2-4 on the CPU {cpu_s:.3f} s in all); pattern 1's archive "
+          f"({len(blob1)} bytes, ratio {data1.nbytes / len(blob1):.1f}) sha256 == host engine "
+          f"{sha(blob1)[:16]}, decode bit-equal; patterns 2 and 3 (payloads {len(pay2)} / "
+          f"{len(pay3)} bytes) and 4 byte-equal to the CPU's; launches {p11_launches}",
+          flush=True)
+    del out1, out2, bins2, bins3, h2, h3
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                           "sz3_tpu_torch.examples.customized_demo"], capture_output=True,
+                          text=True, timeout=600, cwd=ROOT, env=env)
+    demo_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"python -m sz3_tpu_torch.examples.customized_demo failed:\n"
+                                f"{proc.stderr[-2000:]}")
+    heads = [ln.split(":")[0] for ln in proc.stdout.splitlines()]
+    check(heads == ["1. high-level API", "2. assembled modules", "3. custom decomposition",
+                    "4. custom compressor (truncate)"], f"the demo printed {proc.stdout!r}")
+    imported = {ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:") and ln.count("|") == 2}
+    check("torch" in imported and not [m for m in imported if m in ("jax", "sz3_tpu")
+                                       or m.startswith(("jax.", "sz3_tpu."))],
+          "the demo's process imported jax or the JAX package")
+    print(f"python -m sz3_tpu_torch.examples.customized_demo in a fresh process, PYTHONPATH "
+          f"unset: {demo_s:.2f} s cold, the four lines, neither jax nor sz3_tpu imported:\n    | "
+          + proc.stdout.rstrip().replace("\n", "\n    | "), flush=True)
+
+    run_c, (x_c,) = pentry.entry("cuda")
+    (flat_c, b0_c), cold_s = sync_time(lambda: run_c(x_c))
+    run_h, (x_h,) = pentry.entry("cpu")
+    flat_h, b0_h = run_h(x_h)
+    check(flat_c.dtype == torch.int32 and flat_c.cpu().equal(flat_h) and int(b0_c) == int(b0_h),
+          "entry('cuda')'s bins or b0 differ from entry('cpu')'s")
+    ev_ms, host_ms = [], []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run_c(x_c)
+        stop.record()
+        stop.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(stop))
+    entry_ms = sorted(ev_ms)[REPS // 2]
+    e_busy, e_wall, e_events, e_kinds = busy(lambda: run_c(x_c))
+    print(f"entry('cuda') at 64^3: cold call {cold_s * 1e3:.3f} ms, warm {entry_ms:.4f} ms "
+          f"(CUDA events, median of {REPS}; host clock median "
+          f"{sorted(host_ms)[REPS // 2]:.4f} ms); {flat_c.numel()} bins and b0 bit-equal to "
+          f"entry('cpu'); card: {card}", flush=True)
+    print(f"  one warm call under torch.profiler: the card busy {e_busy:.3f} of {e_wall:.3f} ms "
+          f"({100 * e_busy / e_wall:.2f} %), {e_events} device events; ms by kind " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(e_kinds.items())), flush=True)
+    del flat_c, x_c
+    stamp("phase 11 done")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
@@ -2795,6 +2908,7 @@ def main() -> int:
         r["phase8_launches"] = p8_launches.get(r["name"], 0)
         r["phase9_launches"] = p9_launches.get(r["name"], 0)
         r["phase10_launches"] = p10_launches.get(r["name"], 0)
+        r["phase11_launches"] = p11_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,14 @@ The user-facing tools: ``python -m sz3_tpu_torch.cli`` (console script
 (``sz3t-torch-mdz``), ``sz3_tpu_torch.h5tools`` (``sz3t-torch-h5``), the
 pysz binding ``sz3_tpu_torch.pysz``, and ``sz3_tpu_torch.tools``.
 
+The reference's four extension patterns: ``python -m
+sz3_tpu_torch.examples.customized_demo [--device cpu]`` (or the file by its
+path). The single-step INTERP encode at 64^3: ``run, (x,) =
+sz3_tpu_torch.entry.entry(device)``, then ``bins, b0 = run(x)``
+(``ops.interp_fast.encode_step`` builds the step for other shapes). Both run on
+the card by default; the tests pass ``device="cpu"``, and chip_smoke.py's
+phase 11 drives both on the card.
+
 This package imports torch, numpy and the standard library (and h5py in its
 HDF5 modules); never jax, and nothing of the sz3_tpu package, whose
 counterpart files the docstrings name.

@@ -383,3 +383,25 @@ def grid_to_pass_slices(grid: torch.Tensor, plan: FastPlan):
 
 def initial_literal(literal: torch.Tensor, plan: FastPlan) -> torch.Tensor:
     return literal[tuple(slice(0, None, s) for s in plan.init_steps)]
+
+
+@lru_cache(maxsize=32)
+def encode_step(dims, interp_algo, direction, anchor_stride, alpha, beta, eb,
+                quantbin_cnt, dtype_name):
+    """The single-step INTERP encode (counterpart of _jit_encode): (plan,
+    run), run(x) giving the bins of every pass in plan order as one flat
+    int32 tensor, and b0, the first point's bin where the plan has no anchor
+    grid and 0 otherwise. dtype_name is x's dtype, a part of the cache key."""
+    plan = build_fast_plan(dims, interp_algo=interp_algo, direction=direction,
+                           anchor_stride=anchor_stride, alpha=alpha, beta=beta, eb=eb,
+                           quantbin_cnt=quantbin_cnt)
+
+    def run(x: torch.Tensor):
+        bins_list, b0, _ = encode_grid_fast(x, plan)
+        # one flat tensor for one device->host transfer
+        flat = torch.cat([b.reshape(-1) for b in bins_list]) if bins_list else \
+            torch.zeros(0, dtype=torch.int32, device=x.device)
+        return flat, (b0 if b0 is not None else
+                      torch.zeros((), dtype=torch.int32, device=x.device))
+
+    return plan, run

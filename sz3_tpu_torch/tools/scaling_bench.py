@@ -11,7 +11,8 @@ they are:
    what it shows is that the per-chunk work stays flat and what the
    orchestration costs. The label says how many ranks shared a card.
 
-2. The per-chunk device time of the INTERP passes for the chunk shapes an
+2. The per-chunk device time of the encode step (ops/interp_fast.encode_step:
+   the INTERP passes, then the bins' one concatenation) for the chunk shapes an
    n-way split of a base^3 field gives (base = $SZT_SCALE_BASE, 256 by
    default, as in the JAX tool), on one card (CUDA events, the best of 4
    runs of K = 10 encodes). Chunks are independent streams, so n cards each
@@ -102,10 +103,11 @@ def rank_scaling(ranks=(1, 2, 4, 8), edge: int = 64, device=None) -> list:
 
 
 def chunk_model(base: int = 256, splits=(1, 2, 4, 8), device="cuda") -> list:
-    """Part 2: the INTERP passes' time a chunk for the chunk shapes of an
-    n-way split of a base^3 float32 field, on `device`."""
+    """Part 2: the encode step's time a chunk (ops/interp_fast.encode_step:
+    the INTERP passes and the bins' one concatenation) for the chunk shapes
+    of an n-way split of a base^3 float32 field, on `device`."""
     from ..api import _device
-    from ..ops.interp_fast import build_fast_plan, encode_grid_fast
+    from ..ops.interp_fast import encode_step
     from .profile_entropy import clock_ms
 
     dev = _device(device)
@@ -113,13 +115,12 @@ def chunk_model(base: int = 256, splits=(1, 2, 4, 8), device="cuda") -> list:
     results = []
     for n in splits:
         shape = (base // n, base, base)
-        plan = build_fast_plan(shape, interp_algo=1, direction=0, anchor_stride=32, alpha=1.25,
-                               beta=2.0, eb=1e-3, quantbin_cnt=65536)
+        _, run = encode_step(shape, 1, 0, 32, 1.25, 2.0, 1e-3, 65536, "float32")
         x = torch.from_numpy(_field(shape)).to(dev)
 
         def run_k():
             for _ in range(K):
-                encode_grid_fast(x, plan)
+                run(x)
 
         per_chunk = clock_ms(run_k, dev, 4) / K
         gbs = x.numel() * 4 / per_chunk / 1e6
