@@ -132,7 +132,26 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      four lines, no jax or sz3_tpu module imported (-X importtime); the
      single-step INTERP encode (sz3_tpu_torch.entry.entry) at 64^3 on the
      card bit-equal to entry("cpu"), its cold call and its warm call (CUDA
-     events, the median of REPS) beside the card's name and power limit.
+     events, the median of REPS) beside the card's name and power limit;
+ 12. the dtype x rank x algorithm x bound-mode surface against the host
+     engine, each archive sha256-equal to its archive and each decode on the
+     card bit-equal to its decode: (a) the float cases of
+     tests/test_torch_matrix.py's blocks A-D (f32 and f64 at 1D-4D under
+     INTERP_LORENZO, INTERP, LORENZO_REG and NOPRED, plain and OpenMP-format,
+     at ABS and REL; PSNR, L2NORM, ABS_AND_REL and ABS_OR_REL; LINEAR and
+     CUBIC INTERP; NaN and +-Inf, size-1 axes, tiny fields, LORENZO_REG
+     rosters), hist_literals, pack_bits, huff_scan, huff_write and
+     lorenzo_sweep each launched over them and K1, K2+K3, the count and the
+     write phase held against their plain versions on the 2D and 4D CUBIC
+     cases' streams; (b) a 1800 x 3600 field (SDRBench CESM-ATM's 2D shape)
+     and a 288 x 115 x 69 x 69 one (QMCPACK's einspline shape), synthetic,
+     under the default Config at ABS 1e-3: the device tuner's decisions
+     against the engine's, walls cold and warm beside the engine's, ratio,
+     warm peaks, the kernels held on the 2D field's stream; (c) integer
+     fields, which take the engine's route: the eight integer dtypes at 64^3
+     in one archive and in 8 chunks, uint16 at 512^3 and int32 at 256^3,
+     with no kernel launched and no device memory taken by a compress, walls
+     beside the engine's; the phase's time.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -191,6 +210,49 @@ def md_traj(frames, atoms, seed=0, fill_tail=0, site_atoms=3):
     if fill_tail:
         traj[-fill_tail:] = -1.0
     return np.ascontiguousarray(traj, dtype=np.float32)
+
+
+def walk_field(shape, dtype, seed=0):
+    """tests/test_torch_matrix.py's field: a random walk along every axis,
+    unit spread; for an integer dtype scaled over (at most 20,000 steps of)
+    the type's range and clipped."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    for ax in range(x.ndim):
+        x = np.cumsum(x, axis=ax)
+    x = (x - x.mean()) / (x.std() or 1.0)
+    if dtype in (np.float32, np.float64):
+        return x.astype(dtype)
+    info = np.iinfo(dtype)
+    span = min(float(info.max) - float(info.min), 20000.0)
+    mid = 0.0 if info.min < 0 else span / 2
+    return np.clip(np.rint(mid + x * span / 8), info.min, info.max).astype(dtype)
+
+
+def wave_field(shape, seed, dev):
+    """A smooth float32 field of any rank, made on the card from a seed by
+    bench.nyx_like's recipe: waves at three scales (a product of sines along
+    the axes, each with a random phase) and a mild random walk along the
+    last axis."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    phases = torch.rand((3, len(shape)), generator=g, device=dev, dtype=torch.float64).cpu()
+    f = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for k, freq in enumerate((2.0, 6.0, 16.0)):
+        term = None
+        for ax, n in enumerate(shape):
+            v = torch.sin(torch.linspace(0, freq * math.pi, n, device=dev, dtype=torch.float64)
+                          + 2 * math.pi * float(phases[k, ax])).float()
+            v = v.view([n if i == ax else 1 for i in range(len(shape))])
+            term = v if term is None else term * v
+        f += term / (k + 1)
+        del term
+    f += 0.05 / math.sqrt(shape[-1]) * torch.cumsum(
+        torch.randn(shape, generator=g, device=dev), dim=-1)
+    return f
 
 
 def _phase9_rank(rank: int, world: int, store: str, out: str, field: str, modes) -> None:
@@ -2862,6 +2924,224 @@ def main() -> int:
     del flat_c, x_c
     stamp("phase 11 done")
 
+    # ---- phase 12: the dtype x rank x algorithm x bound-mode surface ----------------
+    # (a) the float cases of tests/test_torch_matrix.py on the card, (b) a 2D
+    # and a 4D field at the sizes users store, (c) integer fields, which take
+    # the host engine's route; every archive sha256-equal to the host
+    # engine's, every decode bit-equal to its decode. Launches are counted
+    # over the compress / decompress calls alone.
+    t12 = time.perf_counter()
+    p12_counters = dict(counters, lorenzo_sweep=wf.lorenzo_sweep)
+    p12_launches = dict.fromkeys(p12_counters, 0)
+    any_kernel = dict(p12_counters, biomd_frames=bd.biomd_frames, mdz_frames=md.mdz_frames)
+
+    def drive12(fn):
+        """(result, seconds, launches of every kernel) of fn(), each count
+        set to 0 just before it and read just after."""
+        for w in any_kernel.values():
+            w.launches = 0
+        out, sec = sync_time(fn)
+        seen = {k: w.launches for k, w in any_kernel.items()}
+        for k in p12_launches:
+            p12_launches[k] += seen[k]
+        return out, sec, seen
+
+    def conf12(kw):
+        enums = {"errorBoundMode": szp.EB, "cmprAlgo": szp.ALGO, "interpAlgo": szp.INTERP_ALGO}
+        return szp.Config(**{k: enums[k][v] if k in enums else v for k, v in kw.items()})
+
+    def case12(label, x, kw, nthreads=2):
+        """The host engine's archive and decode of x under the Config `kw`,
+        and the port's on the card, checked equal: (the archive, launches of
+        the compress, of the decompress, the engine's walls, the port's)."""
+        blob_native, ne_s = sync_time(lambda: native_compress(x, conf12(kw), nthreads))
+        ref, nd_s = sync_time(lambda: native_decompress(blob_native))
+        blob, pe_s, seen_enc = drive12(lambda: szp.compress(x, conf12(kw), device="cuda",
+                                                            nthreads=nthreads))
+        (out, _), pd_s, seen_dec = drive12(lambda: szp.decompress(blob_native, device="cuda"))
+        check(sha(blob) == sha(blob_native),
+              f"phase 12 {label}: the archive's sha256 differs from the host engine's")
+        out = out.cpu().numpy()
+        check(out.dtype == ref.dtype == x.dtype and out.shape == ref.shape
+              and out.tobytes() == ref.tobytes(),
+              f"phase 12 {label}: the decode is not bit-equal to the host engine's")
+        return blob, seen_enc, seen_dec, (ne_s, nd_s), (pe_s, pd_s)
+
+    floats12 = (np.float32, np.float64)
+    shapes12 = ((5000,), (60, 70), (24, 26, 28), (6, 7, 8, 9))
+    algos12 = ("INTERP_LORENZO", "INTERP", "LORENZO_REG", "NOPRED")
+    abs_f, rel_f = ({"errorBoundMode": "ABS", "absErrorBound": 1e-2},
+                    {"errorBoundMode": "REL", "relErrorBound": 1e-3})
+    modes12 = {"PSNR 60": {"errorBoundMode": "PSNR", "psnrErrorBound": 60.0},
+               "L2NORM 1e-1": {"errorBoundMode": "L2NORM", "l2normErrorBound": 1e-1},
+               "ABS_AND_REL": {"errorBoundMode": "ABS_AND_REL", "absErrorBound": 1e-2,
+                               "relErrorBound": 1e-3},
+               "ABS_OR_REL": {"errorBoundMode": "ABS_OR_REL", "absErrorBound": 1e-2,
+                              "relErrorBound": 1e-3}}
+
+    def nan_inf_field():
+        x = walk_field(shapes12[2], np.float32, seed=3)
+        x[3, 4, 5] = np.nan
+        x[10, 0, 27] = np.inf
+        x[23, 25, 0] = -np.inf
+        x[7, 7, 7:9] = np.nan
+        return x
+
+    # (label, the field's maker, Config) in the order of the CPU matrix
+    cases = [(f"A {np.dtype(dt).name} {s} {a}{' openmp' if omp else ''} {b}",
+              lambda s=s, dt=dt: walk_field(s, dt), dict(bk, cmprAlgo=a, openmp=omp))
+             for dt in floats12 for s in shapes12 for a in algos12 for omp in (False, True)
+             for b, bk in (("ABS", abs_f), ("REL", rel_f))]
+    cases += [(f"B {m} {np.dtype(dt).name} {a}", lambda dt=dt: walk_field(shapes12[2], dt, 1),
+               dict(mk, cmprAlgo=a)) for m, mk in modes12.items() for dt in floats12
+              for a in algos12]
+    cases += [(f"C {ia} {np.dtype(dt).name} {s}", lambda s=s, dt=dt: walk_field(s, dt, 2),
+               dict(abs_f, cmprAlgo="INTERP", interpAlgo=ia)) for ia in ("LINEAR", "CUBIC")
+              for dt in floats12 for s in shapes12]
+    cases += [(f"D NaN and Inf {a}", nan_inf_field, dict(abs_f, cmprAlgo=a)) for a in algos12]
+    cases += [(f"D {s} {a}", lambda s=s: walk_field(s, np.float32, 4), dict(abs_f, cmprAlgo=a))
+              for s in ((1, 40, 50), (40, 1, 50), (1, 1, 3000), (3, 3, 3), (2, 2000))
+              for a in ("INTERP_LORENZO", "LORENZO_REG")]
+    cases += [(f"D roster lorenzo/lorenzo2/regression {r}",
+               lambda: walk_field(shapes12[2], np.float32, 5),
+               dict(abs_f, cmprAlgo="LORENZO_REG", lorenzo=bool(r[0]), lorenzo2=bool(r[1]),
+                    regression=bool(r[2])))
+              for r in ((1, 1, 0), (0, 0, 1), (1, 0, 0), (1, 1, 1))]
+    # K1, K2+K3, the count and the write phase held against their plain
+    # versions on the streams of these two cases, captured from the path
+    held12 = ("C CUBIC float32 (60, 70)", "C CUBIC float32 (6, 7, 8, 9)")
+    by_algo = {}
+    t = time.perf_counter()
+    for label, make_x, kw in cases:
+        with captured(de, "encode_payload_device") as enc12, \
+                captured(dd, "decode_payload_device") as dec12:
+            _, seen_enc, seen_dec, _, _ = case12(label, make_x(), kw)
+        tally = by_algo.setdefault(kw["cmprAlgo"], dict.fromkeys(p12_counters, 0))
+        for k in tally:
+            tally[k] += seen_enc[k] + seen_dec[k]
+        if label in held12:
+            h_conf, h_x = enc12["args"][:2]
+            hold_path(f"phase 12 {label}", stream_of(h_x, h_conf), h_conf, dec12["args"],
+                      algo=2)
+    float_s = time.perf_counter() - t
+    print(f"phase 12 (a): {len(cases)} float cases of the CPU matrix (blocks A-D) on the card in "
+          f"{float_s:.2f} s: every archive sha256-equal to the host engine's, every decode "
+          f"bit-equal; launches by algorithm {by_algo}; card: {card}", flush=True)
+    for k in p12_counters:
+        check(p12_launches[k] >= 1, f"kernel {k} was not launched in phase 12 (a)")
+    torch.cuda.empty_cache()
+
+    # (b) an SDRBench CESM-ATM 2D field's shape and a QMCPACK einspline
+    # field's (4D), synthetic, under the default Config at ABS 1e-3
+    for label, shape, seed, hold in (("CESM-ATM-shaped 2D", (1800, 3600), 21, True),
+                                     ("QMCPACK-shaped 4D", (288, 115, 69, 69), 22, False)):
+        x = wave_field(shape, seed, dev).cpu().numpy()
+        mb = x.nbytes / 1e6
+        base = szp.Config(absErrorBound=EB)
+        base.set_dims(x.shape)
+        picked, tune_dev_s, tune_host_s = both_tuners(base, x)
+        blob_native, ne_s = sync_time(lambda: native_compress(x, szp.Config(absErrorBound=EB)))
+        ref, nd_s = sync_time(lambda: native_decompress(blob_native))
+        with captured(de, "encode_payload_device") as enc12, \
+                captured(dd, "decode_payload_device") as dec12:
+            blob_cold, cold_s, _ = drive12(
+                lambda: szp.compress(x, szp.Config(absErrorBound=EB), device="cuda"))
+            (out, _), dcold_s, _ = drive12(lambda: szp.decompress(blob_native, device="cuda"))
+        del out
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        blob_warm, warm_s, enc_seen = drive12(
+            lambda: szp.compress(x, szp.Config(absErrorBound=EB), device="cuda"))
+        enc_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, oconf), dwarm_s, dec_seen = drive12(
+            lambda: szp.decompress(blob_native, device="cuda"))
+        dec_peak = torch.cuda.max_memory_allocated() - held
+        for tag, b in (("cold", blob_cold), ("warm", blob_warm)):
+            check(sha(b) == sha(blob_native),
+                  f"phase 12 {label} {tag}: the archive's sha256 differs from the host engine's")
+        out_np = out.cpu().numpy()
+        del out
+        check(out_np.shape == ref.shape and out_np.tobytes() == ref.tobytes(),
+              f"phase 12 {label}: the decode is not bit-equal to the host engine's")
+        err = float(np.abs(out_np.astype(np.float64) - x.astype(np.float64)).max())
+        check(err <= EB, f"phase 12 {label}: max error {err} > {EB}")
+        check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] >= 1
+              and dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] == 1,
+              f"phase 12 {label}: launches per compress {enc_seen}, per decompress {dec_seen}")
+        print(f"phase 12 (b) {label} {shape} ({mb:.1f} MB f32, {oconf.cmprAlgo.name}, ratio "
+              f"{x.nbytes / len(blob_warm):.2f}): archive sha256 == host engine "
+              f"{sha(blob_native)[:16]}; decode bit-equal; max err {err:.3e}; card: {card}",
+              flush=True)
+        print(f"  tuner: device {tune_dev_s:.4f} s, host engine {tune_host_s:.4f} s, decisions "
+              f"equal {picked}", flush=True)
+        print(f"  encode wall: port cold {cold_s:.3f} s, warm {warm_s:.3f} s "
+              f"({mb / warm_s / 1e3:.3f} GB/s), host engine {ne_s:.3f} s; decode wall: port "
+              f"first {dcold_s:.3f} s, warm {dwarm_s:.3f} s ({mb / dwarm_s / 1e3:.3f} GB/s), "
+              f"host engine {nd_s:.3f} s", flush=True)
+        print(f"  warm peak device memory above what was held: compress {enc_peak / 2**30:.3f} "
+              f"GiB ({enc_peak / x.nbytes:.2f} bytes a field byte), decompress "
+              f"{dec_peak / 2**30:.3f} GiB ({dec_peak / x.nbytes:.2f}); launches per compress "
+              f"{ {k: v for k, v in enc_seen.items() if v} }, per decompress "
+              f"{ {k: v for k, v in dec_seen.items() if v} }", flush=True)
+        if hold:
+            h_conf, h_x = enc12["args"][:2]
+            hold_path(f"phase 12 {label}", stream_of(h_x, h_conf), h_conf, dec12["args"],
+                      algo=2)
+        del x, ref, out_np, blob_cold, blob_warm, blob_native, enc12, dec12
+        torch.cuda.empty_cache()
+
+    # (c) integer fields: the host engine's route, no kernel launched and no
+    # device memory taken by the compress (the decode's output goes to the card)
+    ints12 = (np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32, np.int64, np.uint64)
+    t = time.perf_counter()
+    for dt in ints12:
+        x = walk_field((64, 64, 64), dt, seed=11)
+        for omp in (False, True):
+            label = f"{np.dtype(dt).name} 64^3{f', openmp {CHUNKS} chunks' if omp else ''}"
+            _, seen_enc, seen_dec, _, _ = case12(label, x, {"absErrorBound": 2, "openmp": omp},
+                                                 CHUNKS if omp else 0)
+            check(not any(seen_enc.values()) and not any(seen_dec.values()),
+                  f"phase 12 {label}: launched {seen_enc} / {seen_dec}")
+    small_s = time.perf_counter() - t
+    print(f"phase 12 (c): the 8 integer dtypes at 64^3, default Config at ABS 2, one archive and "
+          f"in {CHUNKS} chunks: 16 archives sha256-equal to the host engine's, decodes "
+          f"bit-equal, no kernel launched ({small_s:.2f} s)", flush=True)
+    for label, shape, dt, seed in (("uint16 512^3", (512, 512, 512), np.uint16, 23),
+                                   ("int32 256^3", (256, 256, 256), np.int32, 24)):
+        f = wave_field(shape, seed, dev)
+        lo, hi = (0, 60000) if dt == np.uint16 else (-10**6, 10**6)
+        x = ((f - f.min()) / (f.max() - f.min()) * (hi - lo) + lo).round().to(
+            torch.int64).cpu().numpy().astype(dt)
+        del f
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        blob, pe_s, seen_enc = drive12(
+            lambda: szp.compress(x, szp.Config(absErrorBound=2), device="cuda"))
+        enc_mem = torch.cuda.max_memory_allocated() - held
+        blob2, seen_enc2, seen_dec, (ne_s, nd_s), (pe2_s, pd_s) = case12(
+            label, x, {"absErrorBound": 2}, 0)
+        check(blob == blob2, f"phase 12 {label}: the first archive differs from the second")
+        check(not any(seen_enc.values()) and not any(seen_enc2.values())
+              and not any(seen_dec.values()) and enc_mem == 0,
+              f"phase 12 {label}: launched {seen_enc} / {seen_dec}, compress took {enc_mem} "
+              f"bytes of device memory")
+        print(f"phase 12 (c) {label} ({x.nbytes / 1e6:.1f} MB, ratio {x.nbytes / len(blob):.2f}, "
+              f"{szp.open_archive(blob)[0].cmprAlgo.name}): archive sha256-equal to the host "
+              f"engine's, decode bit-equal, no kernel launched, no device memory taken by the "
+              f"compress; walls: port compress {pe_s:.3f} / {pe2_s:.3f} s, host engine "
+              f"{ne_s:.3f} s; port decompress (to the card) {pd_s:.3f} s, host engine "
+              f"{nd_s:.3f} s; card: {card}", flush=True)
+        del x, blob, blob2
+    p12_s = time.perf_counter() - t12
+    print(f"phase 12 launches {p12_launches}; phase 12 took {p12_s:.1f} s", flush=True)
+    stamp("phase 12 done")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
@@ -2909,6 +3189,7 @@ def main() -> int:
         r["phase9_launches"] = p9_launches.get(r["name"], 0)
         r["phase10_launches"] = p10_launches.get(r["name"], 0)
         r["phase11_launches"] = p11_launches.get(r["name"], 0)
+        r["phase12_launches"] = p12_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

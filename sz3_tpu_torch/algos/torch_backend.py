@@ -7,8 +7,8 @@ recurrence) and of BIOMDXTC (one quantize at the XTC radius), the
 INTERP_LORENZO tuner's trial encodes (algos/tuner.py), the Huffman
 histogram and bit packing of the encode (algos/device_encode.py) and the
 Huffman decode (algos/device_decode.py). The package's host engine
-(runtime.py) seals the tuner's trials and tunes 1D and integer fields,
-builds the Huffman tree, replays LORENZO_REG's
+(runtime.py) seals the tuner's trials, tunes 1D fields, compresses integer
+fields whole, builds the Huffman tree, replays LORENZO_REG's
 coefficient chain, runs BIOMD's first frame and its HuffmanV2 coder and the
 XTC triplet coder, and does the framing and zstd. Archives are
 byte-identical to the host engine's. OpenMP-format archives (conf.openmp)
@@ -106,7 +106,7 @@ def _encode_route(conf: Config, data: np.ndarray) -> Optional[tuple]:
     if algo == ALGO.LORENZO_REG:
         return () if _blockwise_on_device(conf, dt, encode=True) else None
     if algo in (ALGO.INTERP, ALGO.NOPRED):
-        return () if dt in _FLOATS else None
+        return ()
     if algo == ALGO.BIOMD:
         return _biomd_on_device(conf, data)
     if algo == ALGO.BIOMDXTC:
@@ -139,6 +139,10 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: tor
     """Torch-path equivalent of the native dispatcher; mutates `conf` as the
     reference does. `nthreads` is the chunk count of an OpenMP-format
     archive (0: the machine's CPU count, at most data.shape[0])."""
+    if data.dtype not in _FLOATS:
+        # integer fields go whole to the engine's dispatcher, which tunes
+        # them and cuts their chunks itself
+        return runtime.compress_payload(conf, data, cap, nthreads)
     if conf.openmp:
         n = nthreads or min(os.cpu_count() or 1, data.shape[0])
         return chunked.compress_chunked(conf, data, n, device)
@@ -147,7 +151,7 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: tor
         conf.cmprAlgo = ALGO.LOSSLESS
     if conf.cmprAlgo == ALGO.INTERP_LORENZO:
         if not tuner.tune(conf, data, device):     # trials on the device
-            runtime.tune_interp(conf, data)        # the engine's (1D, integer dtypes)
+            runtime.tune_interp(conf, data)        # the engine's (1D fields)
     if conf.cmprAlgo == ALGO.LOSSLESS:
         return runtime.zstd_compress(data.tobytes())
     route = _encode_route(conf, data)

@@ -110,3 +110,29 @@ def test_every_tpu_kernel_is_a_row_of_the_smokes_kernel_table():
     for ref in replaces:
         f, line = ref.rsplit(":", 1)
         assert (ROOT / f).is_file() and int(line) > 0, ref
+
+
+# algorithms outside tests/test_torch_matrix.py, each with where it is held
+NOT_IN_MATRIX = {
+    "LOSSLESS": "no predictor: zstd of the bytes, which the dispatcher takes on a bound of 0 "
+                "or by the ratio rule: tests/test_torch_api.py",
+    "BIOMD": "takes (frames, atoms, 3) trajectories: tests/test_torch_biomd.py",
+    "BIOMDXTC": "takes (frames, atoms, 3) trajectories: tests/test_torch_xtc.py",
+}
+
+
+def test_the_matrix_spans_every_dtype_and_plain_field_algorithm():
+    """tests/test_torch_matrix.py runs every member of the port's DataType
+    and every ALGO that the dispatcher routes for a plain field, so that a
+    dtype or an algorithm added later cannot miss it."""
+    import numpy as np
+
+    import test_torch_matrix as m
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.config import ALGO, DataType
+
+    assert sorted(runtime.np_dtype_id(np.empty(0, dt)) for dt in m.DTYPES) == sorted(DataType)
+    assert len(m.DTYPES) == len(set(m.DTYPES))
+    assert sorted(a.name for a in m.ALGOS) == sorted(
+        a.name for a in ALGO if a.name not in NOT_IN_MATRIX)
+    assert set(NOT_IN_MATRIX) <= {a.name for a in ALGO}

@@ -77,16 +77,26 @@ def test_default_archives_unchanged(name, mode, monkeypatch):
 
 
 def test_dispatcher_keeps_the_engines_tuner_for_1d_and_integer_fields(monkeypatch):
-    seen = []
-    real = runtime.tune_interp
-    monkeypatch.setattr(runtime, "tune_interp", lambda c, d: (seen.append(d.dtype), real(c, d)))
+    """A 1D float field takes the engine's tuner from the port's dispatcher;
+    an integer field goes whole to the engine's dispatcher, which tunes it
+    inside, before any device work."""
+    seen, whole = [], []
+    real_tune, real_compress, real_device = runtime.tune_interp, runtime.compress_payload, \
+        tuner.tune
+    monkeypatch.setattr(runtime, "tune_interp",
+                        lambda c, d: (seen.append(d.dtype), real_tune(c, d)))
+    monkeypatch.setattr(runtime, "compress_payload", lambda c, d, *a: (
+        whole.append((d.dtype, c.cmprAlgo)), real_compress(c, d, *a))[1])
+    monkeypatch.setattr(tuner, "tune",
+                        lambda c, d, dev: (seen.append("device"), real_device(c, d, dev))[1])
     rng = np.random.default_rng(2)
     x1 = np.cumsum(rng.standard_normal(6000)).astype(np.float32)
     xi = rng.integers(0, 50, (24, 24, 24)).astype(np.int32)
     for x in (x1, xi):
         blob = szp.compress(x, Config(absErrorBound=1e-3), device="cpu")
         assert blob == szt.compress(x, szt.Config(absErrorBound=1e-3), backend="native")
-    assert seen == [np.float32, np.int32]
+    assert seen == ["device", np.float32]
+    assert whole[-1] == (np.int32, ALGO.INTERP_LORENZO)
 
 
 def test_chunks_tune_on_the_device(monkeypatch):
