@@ -3142,6 +3142,54 @@ def main() -> int:
     print(f"phase 12 launches {p12_launches}; phase 12 took {p12_s:.1f} s", flush=True)
     stamp("phase 12 done")
 
+    # ---- phase 13: damaged archives --------------------------------------------------
+    # Users decode archives they did not write (from disks, networks, HDF5
+    # files). Every decode route of sz3_tpu_torch/tools/damage_sweep.py, on an
+    # archive written here, then decoded again after the route's KNOWN flips
+    # (which ended the process before its checks), 60 seeded single-byte flips
+    # and three truncations: each case decodes to the archive's dims and dtype
+    # or raises, and the card is synchronised after each, so that a kernel
+    # fault shows at its own case. Then each route's clean archive decodes
+    # bit-equal to the host engine's: the context survived. Launches are
+    # counted over the whole phase.
+    from sz3_tpu_torch.tools import damage_sweep as dsw
+
+    t13 = time.perf_counter()
+    p13_counters = dict(counters, lorenzo_sweep=wf.lorenzo_sweep, biomd_frames=bd.biomd_frames,
+                        mdz_frames=md.mdz_frames)
+    for w in p13_counters.values():
+        w.launches = 0
+    arcs13 = {}
+    for route in dsw.ROUTES:
+        t = time.perf_counter()
+        arc, recs = dsw.sweep(route, dev, flips=60)
+        s = dsw.summary(route, recs, time.perf_counter() - t)
+        arcs13[route] = arc
+        known = recs[:len(dsw.KNOWN.get(route, ()))]
+        print(f"phase 13 {route}: {s['cases']} cases of a {len(arc.blob)}-byte archive, "
+              f"{s['arrays']} decoded, {s['raised']} raised, {s['wall_s']:.2f} s (longest case "
+              f"{s['max_case_s']:.3f} s)" + (f"; KNOWN flips {[r['outcome'] for r in known]}"
+                                             if known else ""), flush=True)
+        check(s["nonconforming"] == 0,
+              f"phase 13 {route}: {s['nonconforming']} cases decoded to other dims or dtype")
+        check(s["max_case_s"] < 10.0, f"phase 13 {route}: a case took {s['max_case_s']:.1f} s")
+        check(all(r["outcome"] == "raised" for r in known),
+              f"phase 13 {route}: a KNOWN flip did not raise: {known}")
+    for route, arc in arcs13.items():
+        got = arc.decode(arc.blob).cpu().numpy()
+        want = np.asarray(arc.engine()).reshape(got.shape)
+        check(got.dtype == want.dtype and np.array_equal(got.view(np.uint8), want.view(np.uint8)),
+              f"phase 13 {route}: the clean archive's decode after the sweep differs from the "
+              f"host engine's")
+    torch.cuda.synchronize()
+    p13_launches = {k: w.launches for k, w in p13_counters.items()}
+    p13_s = time.perf_counter() - t13
+    print(f"phase 13: every clean archive decodes bit-equal to the host engine's after the "
+          f"sweep; launches {p13_launches}; phase 13 took {p13_s:.1f} s", flush=True)
+    for k in ("huff_scan", "huff_write", "lorenzo_sweep", "biomd_frames", "mdz_frames"):
+        check(p13_launches[k] >= 1, f"kernel {k} was not launched in phase 13")
+    stamp("phase 13 done")
+
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),
           "the JAX package was imported")
@@ -3190,6 +3238,7 @@ def main() -> int:
         r["phase10_launches"] = p10_launches.get(r["name"], 0)
         r["phase11_launches"] = p11_launches.get(r["name"], 0)
         r["phase12_launches"] = p12_launches.get(r["name"], 0)
+        r["phase13_launches"] = p13_launches.get(r["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -176,6 +176,11 @@ def decode_payload_device_biomd(conf: Config, payload: bytes,
     if bins.size != conf.num:
         raise ValueError(f"biomd bins count {bins.size} != {conf.num} points")
     eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
+    # the frame recurrence's own bounds (ops/biomd_device._check), before any
+    # device work
+    if not 2 < site <= bd.MAX_SITE or not 0 < radius < 2 ** 30 or last < 2:
+        raise ValueError(f"biomd site {site}, radius {radius} or {last} live frames out of "
+                         f"range")
     acols = atoms * cols
     bins0 = bins[:acols].reshape(atoms, cols)
     n0 = int((bins0 == 0).sum())

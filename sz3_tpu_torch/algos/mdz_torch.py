@@ -333,6 +333,8 @@ def _decompress_2d(src: memoryview, dims, batch: int, quantbin: int, block_size:
         pos += 8
         raw = np.frombuffer(runtime.zstd_decompress(bytes(src[pos:pos + zlen])),
                             np.float32).copy()
+        if raw.size != atoms:
+            raise ValueError(f"an MDZ first frame of {raw.size} atoms, not {atoms}")
         ts0 = _Series(raw, upload(raw, device))
         pos += zlen
     (nbatches,) = struct.unpack_from("<I", src, pos)
@@ -341,36 +343,52 @@ def _decompress_2d(src: memoryview, dims, batch: int, quantbin: int, block_size:
     for _ in range(nbatches):
         hdrs.append(_BATCH.unpack_from(src, pos))
         pos += _BATCH.size
-    out = torch.empty((total_frames, atoms), dtype=torch.float32, device=device)
-    ts = 0
-    for m, ls, lo, ln, abs_eb, slen in hdrs:
-        frames = min(batch if batch else total_frames, total_frames - ts)
+    # the batches must tile the frames, and their streams lie in the archive
+    spans, ts = [], 0
+    for _ in hdrs:
+        if ts >= total_frames:
+            raise ValueError("MDZ batches past the last frame")
+        spans.append((ts, min(batch if batch else total_frames, total_frames - ts)))
+        ts += spans[-1][1]
+    if ts != total_frames or pos + sum(h[-1] for h in hdrs) > len(src):
+        raise ValueError("MDZ batches short of the frames or past the archive")
+    out = None                    # sized once the first batch has opened
+    for (ts, frames), (m, ls, lo, ln, abs_eb, slen) in zip(spans, hdrs):
         stream = bytes(src[pos:pos + slen])
         pos += slen
         n = frames * atoms
         if m in (0, 1):
             qinds, pinds, unpred = _exaalt_open(stream, n, atoms if m == 1 else n)
-            out[ts:ts + frames] = md.exaalt_decode(
+            rows = md.exaalt_decode(
                 upload(qinds, device), upload(pinds, device), upload(unpred, device), m, frames,
                 atoms, abs_eb, radius, ls, lo, ln + md.MARGIN)
         elif m == 2:
             if ts0 is None:
                 raise ValueError("an MT batch in an archive without its first frame")
             bins, unpred = _ts_open(stream, n)
-            out[ts:ts + frames] = md.mt_decode(upload(bins, device), upload(unpred, device),
-                                               ts0.dev, frames, atoms, abs_eb, radius)
+            rows = md.mt_decode(upload(bins, device), upload(unpred, device), ts0.dev, frames,
+                                atoms, abs_eb, radius)
         else:
-            out[ts:ts + frames] = upload(lammps_decompress(
+            rows = upload(lammps_decompress(
                 stream, m, frames, atoms, abs_eb=abs_eb, level=(ls, lo, ln),
                 ts0=ts0.host if ts0 is not None else None, quantbin=quantbin,
                 block_size=block_size), device)
-        ts += frames
+        if out is None:
+            out = torch.empty((total_frames, atoms), dtype=torch.float32, device=device)
+        out[ts:ts + frames] = rows
     return out
 
 
-def _mdz1(blob: bytes, device: torch.device) -> torch.Tensor:
+def _mdz1_dims(blob: bytes) -> tuple:
     nd = blob[5]
-    dims = struct.unpack_from(f"<{nd}Q", blob, 6)
+    if nd not in (1, 2):
+        raise ValueError(f"an MDZ1 series of rank {nd}")
+    return struct.unpack_from(f"<{nd}Q", blob, 6)
+
+
+def _mdz1(blob: bytes, device: torch.device) -> torch.Tensor:
+    dims = _mdz1_dims(blob)
+    nd = len(dims)
     pos = 6 + 8 * nd + 9                 # eb mode u8, eb f64
     batch, quantbin, block_size = struct.unpack_from("<Qii", blob, pos)
     pos += 16
@@ -390,10 +408,18 @@ def mdz_decompress_torch(blob: bytes, device: torch.device) -> torch.Tensor:
         return _mdz1(blob, device)
     F, A, X = struct.unpack_from("<QQQ", blob, 5)
     pos = 5 + 24
-    out = torch.empty((F, A, X), dtype=torch.float32, device=device)
+    out = None                    # sized once the first series has decoded
     for k in range(X):
         (slen,) = struct.unpack_from("<Q", blob, pos)
         pos += 8
-        out[:, :, k] = _mdz1(blob[pos:pos + slen], device).reshape(F, A)
+        sub = blob[pos:pos + slen]
+        if sub[:4] != b"MDZ1" or _mdz1_dims(sub) != (F, A):
+            raise ValueError(f"MDZ3 series {k} is no MDZ1 series of dims {(F, A)}")
+        series = _mdz1(sub, device)
+        if out is None:
+            out = torch.empty((F, A, X), dtype=torch.float32, device=device)
+        out[:, :, k] = series
         pos += slen
+    if out is None:               # no series: no elements
+        out = torch.empty((F, A, 0), dtype=torch.float32, device=device)
     return out

@@ -263,8 +263,13 @@ struct BioMDXtcCodec {
         }
     }
 
+    // the stored bins: every point, or for 3D the frames before the fill
+    size_t live() const {
+        return N <= 2 ? num() : std::min(dims[0], first_fill_frame) * dims[N - 2] * dims[N - 1];
+    }
+
     void decompress(const std::vector<int32_t>& bins, T* out) {
-        size_t n = N <= 2 ? num() : std::min(dims[0], first_fill_frame) * dims[N - 2] * dims[N - 1];
+        size_t n = live();
         for (size_t i = 0; i < n; i++) out[i] = quant.recover(T(0), bins[i] + kXtcRadius);
         if (N == 3) {
             size_t fstride = dims[1] * dims[2];

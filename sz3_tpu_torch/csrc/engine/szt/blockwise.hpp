@@ -105,6 +105,7 @@ class BlockwiseCodec {
         if (use_lorenzo2) roster.push_back(Pred::LORENZO2);
         if (use_regression) roster.push_back(Pred::REGRESSION);
         if (roster.empty()) throw std::runtime_error("all predictors disabled");
+        if (block_size < 1) throw std::runtime_error("blockwise: bad block size");
         single = roster.size() == 1;
         noise1_ = lorenzo_noise(1);
         noise2_ = lorenzo_noise(2);
@@ -121,6 +122,12 @@ class BlockwiseCodec {
     size_t num_elements() const {
         size_t n = 1;
         for (auto d : dims) n *= d;
+        return n;
+    }
+
+    size_t num_blocks() const {
+        size_t n = 1;
+        for (auto d : dims) n *= (d + block_size - 1) / block_size;
         return n;
     }
 
@@ -215,6 +222,7 @@ class BlockwiseCodec {
             if (p == Pred::REGRESSION) load_regression(s);
         if (!single) {
             size_t n = s.template get<size_t>();
+            if (n > num_blocks()) throw std::runtime_error("blockwise: selection past the blocks");
             selection_.resize(n);
             if (n) {
                 Huffman<int32_t> enc;
@@ -437,6 +445,8 @@ class BlockwiseCodec {
 
     // reference RegressionPredictor.hpp:157-164
     void regression_recover() {
+        if (reg_pos_ + N + 1 > reg_bins_.size())
+            throw std::runtime_error("blockwise: coefficient stream too short");
         for (int i = 0; i < N; i++)
             cur_coef_[i] = reg_ql_.recover(cur_coef_[i], reg_bins_[reg_pos_++]);
         cur_coef_[N] = reg_qi_.recover(cur_coef_[N], reg_bins_[reg_pos_++]);
@@ -506,6 +516,8 @@ class BlockwiseCodec {
             }
             return true;
         }
+        if (sel_pos_ >= selection_.size() || uint32_t(selection_[sel_pos_]) >= roster.size())
+            throw std::runtime_error("blockwise: selection stream too short or out of range");
         out = roster[selection_[sel_pos_++]];
         if (out == Pred::REGRESSION) regression_recover();
         return true;
@@ -525,6 +537,8 @@ class BlockwiseCodec {
 
     void load_regression(Source& s) {
         size_t n = s.template get<size_t>();
+        if (n > (N + 1) * num_blocks())
+            throw std::runtime_error("blockwise: coefficients past the blocks");
         reg_bins_.resize(n);
         if (n) {
             reg_qi_.load(s);

@@ -178,7 +178,8 @@ void blockwise_open_packed(Conf& conf, const uint8_t* payload, size_t len,
     huff.load(src);
     count = src.template get<size_t>();
     size_t nbytes = src.template get<size_t>();
-    bits.assign(src.cursor(), src.cursor() + nbytes);
+    const uint8_t* stream = src.take(nbytes);
+    bits.assign(stream, stream + nbytes);
     offset = int64_t(huff.offset());
     const_sym = -1;
     if (huff.constant_stream()) {
@@ -202,7 +203,7 @@ void blockwise_open(Conf& conf, const uint8_t* payload, size_t len,
                     std::vector<int32_t>& regb, std::vector<T>& qlu,
                     std::vector<T>& qiu, std::vector<T>& unpred) {
     auto codec = make_blockwise<T, N>(conf);
-    open_payload(codec, payload, len, bins);
+    open_payload(codec, payload, len, bins, conf.num());
     codec.export_streams(sel, regb, qlu, qiu, unpred);
     conf.absErrorBound = codec.quant.eb();
     conf.quantbinCnt = codec.quant.radius() * 2;
@@ -215,7 +216,7 @@ void interp_open(Conf& conf, const uint8_t* payload, size_t len, std::vector<int
                  std::vector<T>& unpred) {
     InterpCodec<T, N> codec;
     for (int i = 0; i < N; i++) codec.dims[i] = conf.dims[i];
-    open_payload(codec, payload, len, stream);
+    open_payload(codec, payload, len, stream, conf.num());
     unpred = codec.quant.unpred;
     conf.interpAlgo = uint8_t(codec.interp_id);
     conf.interpDirection = codec.direction;
@@ -247,7 +248,8 @@ void interp_open_packed(Conf& conf, const uint8_t* payload, size_t len,
     huff.load(src);
     count = src.template get<size_t>();
     size_t nbytes = src.template get<size_t>();
-    bits.assign(src.cursor(), src.cursor() + nbytes);
+    const uint8_t* stream = src.take(nbytes);
+    bits.assign(stream, stream + nbytes);
     offset = int64_t(huff.offset());
     const_sym = -1;
     if (huff.constant_stream()) {
@@ -281,7 +283,8 @@ void nopred_open_packed(Conf& conf, const uint8_t* payload, size_t len,
     huff.load(src);
     count = src.template get<size_t>();
     size_t nbytes = src.template get<size_t>();
-    bits.assign(src.cursor(), src.cursor() + nbytes);
+    const uint8_t* stream = src.take(nbytes);
+    bits.assign(stream, stream + nbytes);
     offset = int64_t(huff.offset());
     const_sym = -1;
     if (huff.constant_stream()) {
@@ -324,7 +327,7 @@ void nopred_open(Conf& conf, const uint8_t* payload, size_t len, std::vector<int
                  std::vector<T>& unpred) {
     NopredCodec<T> codec;
     codec.n = conf.num();
-    open_payload(codec, payload, len, bins);
+    open_payload(codec, payload, len, bins, codec.n);
     unpred = codec.quant.unpred;
     conf.absErrorBound = codec.quant.eb();
     conf.quantbinCnt = codec.quant.radius() * 2;

@@ -78,11 +78,25 @@ class Source {
         if (remaining() < n) throw std::runtime_error("szt: truncated stream");
         p_ += n;
     }
+    // the next n bytes, consumed (an archive-given length checked before use)
+    const uint8_t* take(size_t n) {
+        const uint8_t* p = p_;
+        advance(n);
+        return p;
+    }
 
   private:
     const uint8_t* p_;
     const uint8_t* end_;
 };
+
+// Throws unless an archive-given count equals what the decode needs; checked
+// before the count sizes an allocation, a copy or a loop.
+inline void check_count(uint64_t got, uint64_t want, const char* what) {
+    if (got != want)
+        throw std::runtime_error(std::string("szt: archived ") + what + " count " +
+                                 std::to_string(got) + " != " + std::to_string(want));
+}
 
 }  // namespace szt
 #endif

@@ -220,6 +220,10 @@ class Huffman {
         node_count_ = rd_be32(hdr);
         state_num_ = rd_be32(hdr + 4) * 2;
         in.advance(1);  // endian byte
+        // the tree's four arrays must be in the stream before they are sized
+        size_t idx = node_count_ <= 256 ? 1 : node_count_ <= 65536 ? 2 : 4;
+        if (node_count_ == 0 || node_count_ > in.remaining() / (2 * idx + sizeof(T) + 1))
+            throw std::runtime_error("huffman: bad node count");
         if (node_count_ <= 256) load_padded<uint8_t>(in);
         else if (node_count_ <= 65536) load_padded<uint16_t>(in);
         else load_padded<uint32_t>(in);
@@ -308,6 +312,7 @@ class Huffman {
         int64_t maxs = -1;
         for (uint32_t i = 0; i < node_count_; i++)
             if (pool_leaf_[i]) maxs = std::max(maxs, int64_t(pool_sym_[i]));
+        if (maxs > int64_t(state_num_)) throw std::runtime_error("huffman: symbol past stateNum");
         codes.assign(size_t(maxs + 1), 0);
         lens.assign(size_t(maxs + 1), 0);
         // iterative DFS: (node, code, len)
@@ -319,6 +324,9 @@ class Huffman {
             st.pop_back();
             if (pool_leaf_[node]) {
                 if (len > kMaxLen) { ok = false; continue; }
+                // each symbol one leaf, so the exported code is complete
+                if (int64_t(pool_sym_[node]) < 0 || lens[size_t(pool_sym_[node])] != 0)
+                    throw std::runtime_error("huffman: negative or repeated symbol");
                 codes[size_t(pool_sym_[node])] = code;
                 lens[size_t(pool_sym_[node])] = uint8_t(len);
                 continue;
@@ -507,12 +515,16 @@ class Huffman {
         pool_leaf_.assign(t.begin(), t.end());
         pool_l_.assign(node_count_, -1);
         pool_r_.assign(node_count_, -1);
+        // preorder numbering: a child's index is past its parent's, and no
+        // node has two parents, so the nodes form a tree and every walk ends
+        std::vector<uint8_t> has_parent(node_count_, 0);
         for (uint32_t i = 0; i < node_count_; i++) {
             if (!t[i]) {
                 // internal nodes need two in-range children (index 0 is the
                 // root and can never be a child in the padded format)
-                if (!L[i] || !R[i] || uint32_t(L[i]) >= node_count_ ||
-                    uint32_t(R[i]) >= node_count_)
+                if (uint32_t(L[i]) <= i || uint32_t(R[i]) <= i || L[i] == R[i] ||
+                    uint32_t(L[i]) >= node_count_ || uint32_t(R[i]) >= node_count_ ||
+                    has_parent[L[i]]++ || has_parent[R[i]]++)
                     throw std::runtime_error("huffman: malformed serialized tree");
                 pool_l_[i] = int(L[i]);
                 pool_r_[i] = int(R[i]);

@@ -73,12 +73,13 @@ class BitSinkLSB {
     uint8_t index_ = 0;
 };
 
+// Reads past the end of the source's `len` bytes give zero bits.
 class BitSourceLSB {
   public:
-    explicit BitSourceLSB(const uint8_t* p) : p_(p) {}
+    BitSourceLSB(const uint8_t* p, size_t len) : p_(p), len_(len) {}
 
     inline uint32_t bit() {
-        uint32_t v = (p_[pos_ >> 3] >> (pos_ & 7)) & 1;
+        uint32_t v = (pos_ >> 3) < len_ ? (p_[pos_ >> 3] >> (pos_ & 7)) & 1 : 0;
         pos_++;
         return v;
     }
@@ -92,6 +93,7 @@ class BitSourceLSB {
 
   private:
     const uint8_t* p_;
+    size_t len_;
     size_t pos_ = 0;
 };
 
@@ -234,7 +236,7 @@ class HuffmanV2 {
         uint64_t len = get_i64_be(in) ^ 0x1234abcdu;
         size_t nbytes = size_t((len + 7) >> 3);
         if (in.remaining() < nbytes) throw std::runtime_error("huffv2: truncated bitstream");
-        BitSourceLSB br(in.cursor());
+        BitSourceLSB br(in.cursor(), nbytes);
         if (n_ == 0) {  // fixed-length raw mode
             for (size_t i = 0; i < count; i++) out[i] = T(br.bits(mbft_)) + offset_;
         } else {
@@ -288,7 +290,9 @@ class HuffmanV2 {
         }
         // preorder parse; bit 0 of the stream is the root marker (skipped by
         // starting at bit 1, mirroring loadAsDFSOrder's `size_t i = 1`)
-        BitSourceLSB br(in.cursor());
+        // every leaf takes at least one bit of the tree's stream
+        if (n_ > 8 * in.remaining()) throw std::runtime_error("huffv2: bad symbol count");
+        BitSourceLSB br(in.cursor(), in.remaining());
         br.bit();  // root's internal-node bit
         size_t cap = 2 * n_;
         sym_.assign(cap, 0);
@@ -315,7 +319,8 @@ class HuffmanV2 {
         }
         nodes_ = cnt;
         in.advance(br.bytes_consumed());
-        assign_codes();
+        // the decode walks the tree; the code table (sized by the
+        // archive-given maxval) is the encoder's alone
     }
 
     int64_t maxval() const { return maxval_; }

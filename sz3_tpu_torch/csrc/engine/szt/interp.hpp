@@ -137,11 +137,19 @@ class InterpCodec {
         quant.save(s);
     }
 
+    // The dims set before load() (the archive Config's) must be the payload's.
     void load(Source& s) {
+        const std::array<size_t, N> want = dims;
         s.get_n(dims.data(), N);
+        if (dims != want) throw std::runtime_error("interp: payload dims differ from the Config's");
         blocksize = s.template get<uint32_t>();
         interp_id = s.template get<int32_t>();
         direction = s.template get<int32_t>();
+        int perms = 1;  // N! dimension orders (1D never reads the direction)
+        for (int i = 2; i <= N; i++) perms *= i;
+        if (blocksize == 0 || blocksize > (1u << 20) ||
+            (N > 1 && (direction < 0 || direction >= perms)))
+            throw std::runtime_error("interp: bad block size or direction");
         anchor_stride = s.template get<size_t>();
         alpha = s.template get<double>();
         beta = s.template get<double>();

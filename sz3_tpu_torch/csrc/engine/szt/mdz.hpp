@@ -229,7 +229,7 @@ std::vector<uint8_t> mdz_seal_ts(TimeSeriesCodec<T>& codec, const std::vector<in
 template <class T>
 void mdz_open_ts(TimeSeriesCodec<T>& codec, const uint8_t* cmp, size_t len, T* out) {
     std::vector<int32_t> bins;
-    open_payload(codec, cmp, len, bins);
+    open_payload(codec, cmp, len, bins, codec.frames * codec.atoms);
     codec.decompress(bins, out);
 }
 
@@ -263,7 +263,7 @@ void mdz_lr_decompress(size_t frames, size_t atoms, int block_size, const uint8_
                        T* out) {
     auto codec = mdz_lr_codec<T>(frames, atoms, /*abs_eb=*/1.0, /*quantbin=*/65536, block_size);
     std::vector<int32_t> bins;
-    open_payload(codec, cmp, len, bins);
+    open_payload(codec, cmp, len, bins, frames * atoms);
     codec.decompress(bins.data(), out);
 }
 
@@ -538,6 +538,7 @@ void mdz_decompress_2d(Source& src, const std::vector<size_t>& dims, size_t batc
     std::vector<T> ts0;
     if (has_ts0) {
         uint64_t zlen = src.get<uint64_t>();
+        if (zlen > src.remaining()) throw std::runtime_error("mdz: truncated first frame");
         auto raw = zstd_unpack(src.cursor(), zlen);
         src.advance(zlen);
         ts0.resize(atoms);
@@ -563,8 +564,10 @@ void mdz_decompress_2d(Source& src, const std::vector<size_t>& dims, size_t batc
     }
     size_t ts = 0;
     for (auto& r : recs) {
+        if (ts >= total_frames) throw std::runtime_error("mdz: batches past the last frame");
         size_t frames = std::min(batch ? batch : total_frames, total_frames - ts);
         T* dst = out + ts * atoms;
+        if (r.len > src.remaining()) throw std::runtime_error("mdz: truncated batch");
         const uint8_t* stream = src.cursor();
         if (r.method == 0 || r.method == 1) {
             ExaaltCodec<T> c;
@@ -587,6 +590,7 @@ void mdz_decompress_2d(Source& src, const std::vector<size_t>& dims, size_t batc
         src.advance(size_t(r.len));
         ts += frames;
     }
+    if (ts != total_frames) throw std::runtime_error("mdz: batches short of the frames");
 }
 
 // Entry points handling 1D/2D directly and 3D per-axis (mdz.hpp:467-498).
@@ -628,6 +632,7 @@ inline MdzHeader mdz_peek(const uint8_t* blob, size_t len) {
         for (auto& d : h.dims) d = src.get<uint64_t>();
     } else if (std::memcmp(magic, "MDZ1", 4) == 0) {
         uint8_t nd = src.get<uint8_t>();
+        if (nd < 1 || nd > 2) throw std::runtime_error("mdz: bad rank");
         h.dims.resize(nd);
         for (auto& d : h.dims) d = src.get<uint64_t>();
     } else {
@@ -644,9 +649,14 @@ void mdz_decompress(const uint8_t* blob, size_t len, T* out) {
     if (std::memcmp(magic, "MDZ3", 4) == 0) {
         src.get<uint8_t>();  // dtype
         size_t F = src.get<uint64_t>(), A = src.get<uint64_t>(), X = src.get<uint64_t>();
-        std::vector<T> tr(F * A);
+        std::vector<T> tr;
+        const std::vector<size_t> series{F, A};
         for (size_t x = 0; x < X; x++) {
             uint64_t sublen = src.get<uint64_t>();
+            if (sublen > src.remaining()) throw std::runtime_error("mdz: truncated series");
+            if (mdz_peek(src.cursor(), size_t(sublen)).dims != series)
+                throw std::runtime_error("mdz: a series' dims differ from the archive's");
+            tr.resize(F * A);  // sized once a series has agreed with the header
             mdz_decompress<T>(src.cursor(), size_t(sublen), tr.data());
             src.advance(size_t(sublen));
             for (size_t f = 0; f < F; f++)

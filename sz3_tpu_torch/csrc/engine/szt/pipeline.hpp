@@ -74,8 +74,11 @@ std::vector<uint8_t> seal_payload(Decomp& decomp, const std::vector<int32_t>& bi
     return zstd_pack(inner.buf.data(), inner.buf.size(), cap);
 }
 
+// `expect`: the bin count the decomposition reads back (checked before the
+// bins are sized)
 template <class Decomp>
-void open_payload(Decomp& decomp, const uint8_t* cmp, size_t len, std::vector<int32_t>& bins) {
+void open_payload(Decomp& decomp, const uint8_t* cmp, size_t len, std::vector<int32_t>& bins,
+                  size_t expect) {
     std::vector<uint8_t> raw;
     {
         StageTimer t("zstd decompress");
@@ -86,6 +89,7 @@ void open_payload(Decomp& decomp, const uint8_t* cmp, size_t len, std::vector<in
     Huffman<int32_t> huff;
     huff.load(src);
     size_t count = src.template get<size_t>();
+    check_count(count, expect, "bin");
     bins.resize(count);
     StageTimer t("huffman decode");
     huff.decode(src, count, bins.data());
@@ -155,7 +159,7 @@ void decompress_interp(const Conf& conf, const uint8_t* cmp, size_t len, T* out)
     InterpCodec<T, N> codec;
     for (int i = 0; i < N; i++) codec.dims[i] = conf.dims[i];
     std::vector<int32_t> bins;
-    open_payload(codec, cmp, len, bins);
+    open_payload(codec, cmp, len, bins, conf.num());
     codec.decompress(bins.data(), out);
 }
 
@@ -174,7 +178,7 @@ void decompress_nopred(const Conf& conf, const uint8_t* cmp, size_t len, T* out)
     NopredCodec<T> codec;
     codec.n = conf.num();
     std::vector<int32_t> bins;
-    open_payload(codec, cmp, len, bins);
+    open_payload(codec, cmp, len, bins, codec.n);
     codec.decompress(bins.data(), out);
 }
 
@@ -208,7 +212,7 @@ template <class T, int N>
 void decompress_lorenzo_reg(const Conf& conf, const uint8_t* cmp, size_t len, T* out) {
     auto codec = make_blockwise<T, N>(conf);
     std::vector<int32_t> bins;
-    open_payload(codec, cmp, len, bins);
+    open_payload(codec, cmp, len, bins, conf.num());
     codec.decompress(bins.data(), out);
 }
 
@@ -252,6 +256,7 @@ void decompress_biomd(const Conf& conf, const uint8_t* cmp, size_t len, T* out) 
         HuffmanV2<int32_t> huff;
         huff.load(src);
         size_t count = src.template get<size_t>();
+        check_count(count, conf.num(), "bin");
         std::vector<int32_t> bins(count);
         huff.decode(src, count, bins.data());
         codec.decompress(bins, out);
@@ -325,6 +330,7 @@ void biomd_open(Conf& conf, const uint8_t* cmp, size_t len,
     HuffmanV2<int32_t> huff;
     huff.load(src);
     size_t count = src.template get<size_t>();
+    check_count(count, conf.num(), "bin");
     bins.resize(count);
     huff.decode(src, count, bins.data());
     unpred = std::move(codec.quant.unpred);
@@ -374,6 +380,7 @@ void decompress_biomdxtc(const Conf& conf, const uint8_t* cmp, size_t len, T* ou
         XtcCoder coder;
         coder.load(src);
         size_t count = src.template get<size_t>();
+        check_count(count, codec.live(), "bin");
         std::vector<int32_t> bins(count);
         coder.decode(src, count, bins.data());
         codec.decompress(bins, out);
@@ -795,6 +802,11 @@ void decompress_chunked(const Conf& conf, const uint8_t* cmp, size_t len, T* out
     const uint8_t* body = src.cursor();
 
     size_t base = conf.num() / conf.dims[0];
+    for (int t = 0; t < nthreads; t++) {  // each chunk fills its own rows
+        size_t lo = size_t(t) * conf.dims[0] / nthreads;
+        size_t hi = size_t(t + 1) * conf.dims[0] / nthreads;
+        check_count(confs[t].num(), (hi - lo) * base, "chunk element");
+    }
     std::vector<std::thread> threads;
     std::vector<std::exception_ptr> errors(nthreads);
     for (int t = 0; t < nthreads; t++) {

@@ -72,10 +72,17 @@ class LinearQuantizer {
 
     inline T recover(T pred, int q) {
         if (q) return static_cast<T>(pred + double(2 * (int64_t(q) - radius_)) * eb_);
-        return unpred[unpred_pos_++];
+        return recover_unpred();
     }
 
-    inline T recover_unpred() { return unpred[unpred_pos_++]; }
+    // the next literal; a stream with more zero bins than literals throws
+    inline T recover_unpred() {
+        if (unpred_pos_ >= unpred.size()) out_of_literals();
+        return unpred[unpred_pos_++];
+    }
+    [[noreturn, gnu::cold, gnu::noinline]] static void out_of_literals() {
+        throw std::runtime_error("szt: more zero bins than literals");
+    }
 
     // Store the literal value; emits bin 0 (used for interp anchor points,
     // reference LinearQuantizer.hpp:88-91).
@@ -99,6 +106,7 @@ class LinearQuantizer {
         recip_ = 1.0 / eb_;
         radius_ = in.template get<int32_t>();
         size_t n = in.template get<size_t>();
+        if (n > in.remaining() / sizeof(T)) throw std::runtime_error("szt: truncated literals");
         unpred.resize(n);
         if (n) in.get_n(unpred.data(), n);
         unpred_pos_ = 0;

@@ -76,8 +76,10 @@ struct BitWriter {
     }
 };
 
+// Reads past the end of the stream's `len` bytes give zero bits.
 struct BitReader {
     const uint8_t* data;
+    size_t len;
     size_t index = 0;
     uint64_t acc = 0;
     int nacc = 0;
@@ -85,7 +87,8 @@ struct BitReader {
     int get(int nbits) {
         if (nbits <= 0) return 0;
         while (nacc < nbits) {
-            acc = (acc << 8) | data[index++];
+            acc = (acc << 8) | (index < len ? data[index] : 0);
+            index++;
             nacc += 8;
         }
         nacc -= nbits;
@@ -390,7 +393,7 @@ class XtcCoder {
 
         uint64_t nbytes = in.template get<uint64_t>();
         if (in.remaining() < nbytes) throw std::runtime_error("xtc: truncated bitstream");
-        BitReader r{in.cursor()};
+        BitReader r{in.cursor(), size_t(nbytes)};
         in.advance(size_t(nbytes));
 
         size_t triplets = target_len / 3;
@@ -425,6 +428,9 @@ class XtcCoder {
             fprintf(stderr, "D i=%zu run=%d smaller=%d sidx=%d\n", i + (size_t)run/3, run, is_smaller, small_idx);
 #endif
             if (run > 0) {
+                // a run of run/3 more triplets must end inside the stream
+                if (size_t(run / 3) > triplets - i)
+                    throw std::runtime_error("xtc: run past the end of the stream");
                 for (int k = 0; k < run; k += 3) {
                     receiveints(r, 3, small_idx, size_small, this_coord);
                     i++;

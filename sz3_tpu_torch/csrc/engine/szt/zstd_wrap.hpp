@@ -42,6 +42,9 @@ inline std::vector<uint8_t> zstd_unpack(const uint8_t* src, size_t src_len) {
     if (hint != ZSTD_CONTENTSIZE_UNKNOWN && hint != ZSTD_CONTENTSIZE_ERROR &&
         raw_len != size_t(hint))
         throw std::runtime_error("szt: zstd frame size mismatch");
+    // a zstd block of at most 128 KiB takes at least 4 bytes (an RLE block)
+    if (raw_len / (size_t(1) << 17) > (src_len - sizeof(size_t)) / 4 + 1)
+        throw std::runtime_error("szt: zstd frame size past the frame's reach");
     std::vector<uint8_t> out(raw_len);
     size_t n = ZSTD_decompress(out.data(), raw_len, src + sizeof(size_t), src_len - sizeof(size_t));
     if (ZSTD_isError(n)) throw std::runtime_error(ZSTD_getErrorName(n));

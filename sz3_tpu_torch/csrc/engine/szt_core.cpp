@@ -1123,6 +1123,7 @@ void biomdxtc_open_impl(const Conf& conf, const uint8_t* cmp, size_t len,
     XtcCoder coder;
     coder.load(src);
     size_t count = src.template get<size_t>();
+    check_count(count, codec.live(), "bin");
     bins.resize(count);
     coder.decode(src, count, bins.data());
     unpred = std::move(codec.quant.unpred);
@@ -1280,8 +1281,7 @@ int szt_mdz_ts_open(const uint8_t* cmp, uint64_t len, uint64_t n, int32_t* bins,
     try {
         TimeSeriesCodec<float> codec;
         std::vector<int32_t> bv;
-        open_payload(codec, cmp, len, bv);
-        if (bv.size() != n) throw std::runtime_error("ts bins count mismatch");
+        open_payload(codec, cmp, len, bv, n);
         std::memcpy(bins, bv.data(), bv.size() * sizeof(int32_t));
         *unpred = static_cast<float*>(
             std::malloc(std::max<size_t>(1, codec.quant.unpred.size() * 4)));

@@ -71,11 +71,14 @@ def selection_info(geo: Geometry, roster, selection, reg_bins, ql_unpred, qi_unp
                              f"{len(roster)} predictors")
         types = np.asarray([kind_type[k] for k in roster], np.uint8)[sel]
         commit = types == T_KEEP
+    reg_bins = np.asarray(reg_bins, np.int32).reshape(-1)
+    if reg_bins.size != 4 * int(commit.sum()):
+        raise ValueError(f"coefficient stream of {reg_bins.size} bins for "
+                         f"{int(commit.sum())} regression blocks")
     coefs = np.zeros((nblk, 4), np.float32)
     if commit.any():
         coefs[commit] = runtime.blockwise_coef_chain(
-            eb / 4 / BS, eb / 4, np.asarray(reg_bins, np.int32).reshape(-1, 4),
-            ql_unpred, qi_unpred)
+            eb / 4 / BS, eb / 4, reg_bins.reshape(-1, 4), ql_unpred, qi_unpred)
     return types, coefs
 
 

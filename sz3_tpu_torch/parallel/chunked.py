@@ -13,6 +13,7 @@ chunk count, whatever the order the chunks run in.
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import List, Tuple
 
@@ -91,8 +92,15 @@ def read_chunks(conf: Config, payload: bytes) -> List[Tuple[int, int, Config, by
     pos += 8 * n
     if pos + sum(sizes) > len(payload):
         raise ValueError("chunk sizes exceed the payload")
+    row = math.prod(conf.dims[1:])
+    bounds = _chunk_bounds(conf.dims[0], n)
+    for t, ((lo, hi), c) in enumerate(zip(bounds, confs)):
+        # a chunk's Config sizes its decode: it must hold the chunk's rows
+        if math.prod(c.dims) != (hi - lo) * row:
+            raise ValueError(f"chunk {t}'s dims {tuple(c.dims)} do not hold its "
+                             f"{hi - lo} rows of {row} points")
     out = []
-    for (lo, hi), c, size in zip(_chunk_bounds(conf.dims[0], n), confs, sizes):
+    for (lo, hi), c, size in zip(bounds, confs, sizes):
         out.append((lo, hi, c, payload[pos:pos + size]))
         pos += size
     return out
