@@ -37,6 +37,7 @@ from ..ops import xtc_device as xtc
 from ..ops.entropy_decode import decode_stream, upload_bytes
 from ..ops.interp_fast import decode_grid_fast, grid_to_pass_slices, initial_literal
 from ..ops.quantize import by_slices, recover
+from ..utils import trace
 from .device_encode import perm_for, plan_for
 
 
@@ -44,9 +45,13 @@ def dense_bins(bits: bytes, count: int, offset: int, codes: np.ndarray, lens: np
                const_sym: int, device: torch.device,
                stats: Optional[dict] = None) -> torch.Tensor:
     """Huffman stream -> the dense stream-order bins, (count,) int32 on `device`."""
-    if const_sym >= 0:
-        return torch.full((count,), const_sym, dtype=torch.int32, device=device)
-    return decode_stream(bits, count, codes, lens, offset, device, stats)
+    with trace.span("entropy.decode", symbols=count, stream_bytes=len(bits)) as sp:
+        if const_sym >= 0:
+            return torch.full((count,), const_sym, dtype=torch.int32, device=device)
+        stats = {} if stats is None else stats
+        dense = decode_stream(bits, count, codes, lens, offset, device, stats)
+        sp.set(passes=stats["passes"])
+    return dense
 
 
 def decode_payload_device(conf: Config, payload: bytes, dtype, device: torch.device,
@@ -59,24 +64,28 @@ def decode_payload_device(conf: Config, payload: bytes, dtype, device: torch.dev
     # The payload header is authoritative over the Config tail (the interp
     # compressor re-tunes and may store another interpolator, with the same
     # stream count): open first, plan after.
-    bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
-        conf, payload, dtype, algo=2)
+    with trace.span("open", payload_bytes=len(payload)):
+        bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
+            conf, payload, dtype, algo=2)
     num = int(np.prod(conf.dims))
     if count != num:
         raise ValueError(f"archived symbol count {count} != {num} grid points")
     dense = dense_bins(bits, count, offset, codes, lens, const_sym, device, stats)
-    slots = torch.nonzero(dense == 0).reshape(-1)
-    if slots.numel() != unpred.size:
-        raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
-    values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(
-        torch.float32 if dtype == np.float32 else torch.float64)
-    perm = perm_for(conf, device)
-    plan = plan_for(conf)
-    literal = stream_order.literal_grid(values, perm, slots, num).reshape(plan.dims)
-    bins = stream_order.from_stream(dense, perm, num).reshape(plan.dims)
-    return decode_grid_fast(grid_to_pass_slices(bins, plan), grid_to_pass_slices(literal, plan),
-                            plan, initial_literal(literal, plan), bins[(0,) * bins.dim()],
-                            literal.dtype)
+    with trace.span("interp.decode", points=num):
+        slots = torch.nonzero(dense == 0).reshape(-1)
+        if slots.numel() != unpred.size:
+            raise ValueError(f"literal stream length {unpred.size} != zero bins "
+                             f"{slots.numel()}")
+        values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(
+            torch.float32 if dtype == np.float32 else torch.float64)
+        perm = perm_for(conf, device)
+        plan = plan_for(conf)
+        literal = stream_order.literal_grid(values, perm, slots, num).reshape(plan.dims)
+        bins = stream_order.from_stream(dense, perm, num).reshape(plan.dims)
+        return decode_grid_fast(grid_to_pass_slices(bins, plan),
+                                grid_to_pass_slices(literal, plan), plan,
+                                initial_literal(literal, plan), bins[(0,) * bins.dim()],
+                                literal.dtype)
 
 
 def decode_payload_device_blockwise(conf: Config, payload: bytes,
@@ -100,31 +109,35 @@ def decode_payload_device_blockwise(conf: Config, payload: bytes,
     from ..ops import blockwise_wavefront as wf
 
     roster = wf.roster_of(conf.lorenzo, conf.lorenzo2, conf.regression)
-    (bits, count, offset, codes, lens, const_sym, sel, regb, qlu, qiu,
-     unpred) = runtime.blockwise_open_packed(conf, payload)
+    with trace.span("open", payload_bytes=len(payload)):
+        (bits, count, offset, codes, lens, const_sym, sel, regb, qlu, qiu,
+         unpred) = runtime.blockwise_open_packed(conf, payload)
     geo = bl.geometry(conf.dims)
     num = int(np.prod(geo.dims))
     if count != num:
         raise ValueError(f"archived symbol count {count} != {num} grid points")
     eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
     dense = dense_bins(bits, count, offset, codes, lens, const_sym, device)
-    slots = torch.nonzero(dense == 0).reshape(-1)
-    if slots.numel() != unpred.size:
-        raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
-    values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(torch.float32)
-    perm = bl.perm_for(geo.dims, device)
-    lits = stream_order.literal_grid(values, perm, slots, geo.ncells).reshape(geo.grid)
-    bins = stream_order.from_stream(dense, perm, geo.ncells).reshape(geo.grid)
-    del dense, slots, values
-    block_types, coefs = wf.selection_info(geo, roster, sel, regb, qlu, qiu, eb)
-    block_types = torch.from_numpy(block_types).to(device)
-    types = wf.cell_types(geo, block_types)
-    rec = torch.zeros(geo.padded, dtype=torch.float32, device=device)
-    wf.reg_preplace_decode(geo, rec, (block_types == bl.T_KEEP).reshape(geo.nb), bins, lits,
-                           torch.from_numpy(coefs).to(device).reshape(*geo.nb, 4), eb, radius)
-    wf.sweep_decode(rec, types, bins, lits, eb, radius)
-    d0, d1, d2 = geo.dims
-    return rec[bl.PAD:bl.PAD + d0, bl.PAD:bl.PAD + d1, bl.PAD:bl.PAD + d2].contiguous()
+    with trace.span("lorenzo.decode", blocks=geo.nblk):
+        slots = torch.nonzero(dense == 0).reshape(-1)
+        if slots.numel() != unpred.size:
+            raise ValueError(f"literal stream length {unpred.size} != zero bins "
+                             f"{slots.numel()}")
+        values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(torch.float32)
+        perm = bl.perm_for(geo.dims, device)
+        lits = stream_order.literal_grid(values, perm, slots, geo.ncells).reshape(geo.grid)
+        bins = stream_order.from_stream(dense, perm, geo.ncells).reshape(geo.grid)
+        del dense, slots, values
+        block_types, coefs = wf.selection_info(geo, roster, sel, regb, qlu, qiu, eb)
+        block_types = torch.from_numpy(block_types).to(device)
+        types = wf.cell_types(geo, block_types)
+        rec = torch.zeros(geo.padded, dtype=torch.float32, device=device)
+        wf.reg_preplace_decode(geo, rec, (block_types == bl.T_KEEP).reshape(geo.nb), bins, lits,
+                               torch.from_numpy(coefs).to(device).reshape(*geo.nb, 4), eb,
+                               radius)
+        wf.sweep_decode(rec, types, bins, lits, eb, radius)
+        d0, d1, d2 = geo.dims
+        return rec[bl.PAD:bl.PAD + d0, bl.PAD:bl.PAD + d1, bl.PAD:bl.PAD + d2].contiguous()
 
 
 def decode_payload_device_nopred(conf: Config, payload: bytes, dtype,
@@ -136,8 +149,9 @@ def decode_payload_device_nopred(conf: Config, payload: bytes, dtype,
     prediction, slice by slice, then the k-th zero bin takes the k-th
     literal. Raises ValueError on a payload whose counts disagree."""
     dtype = np.dtype(dtype)
-    bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
-        conf, payload, dtype, algo=3)
+    with trace.span("open", payload_bytes=len(payload)):
+        bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
+            conf, payload, dtype, algo=3)
     num = int(np.prod(conf.dims))
     if count != num:
         raise ValueError(f"archived symbol count {count} != {num} points")
@@ -170,7 +184,8 @@ def decode_payload_device_biomd(conf: Config, payload: bytes,
 
     Raises ValueError where the literal stream is shorter than the zero
     bins."""
-    bins, unpred, site, first_fill, fill = runtime.biomd_open(conf, payload)
+    with trace.span("open", payload_bytes=len(payload)):
+        bins, unpred, site, first_fill, fill = runtime.biomd_open(conf, payload)
     frames, atoms, cols = conf.dims
     last = min(frames, first_fill)
     if bins.size != conf.num:
@@ -211,7 +226,8 @@ def decode_payload_device_biomdxtc(conf: Config, payload: bytes,
     the stored bins (runtime.biomdxtc_open), then on the device one
     elementwise recover (ops/xtc_device.py), slice by slice, and the
     literals placed. Raises ValueError on a payload whose counts disagree."""
-    stored, unpred, first_fill, fill = runtime.biomdxtc_open(conf, payload)
+    with trace.span("open", payload_bytes=len(payload)):
+        stored, unpred, first_fill, fill = runtime.biomdxtc_open(conf, payload)
     dims = tuple(conf.dims)
     stored = torch.from_numpy(stored).to(device)
     lit_at = torch.nonzero(stored == -xtc.XTC_RADIUS).reshape(-1)

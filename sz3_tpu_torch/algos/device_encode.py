@@ -39,6 +39,7 @@ from ..ops import stream_order
 from ..ops import xtc_device as xtc
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
 from ..ops.quantize import by_slices, quantize
+from ..utils import trace
 from .huffman import build_table
 
 
@@ -115,6 +116,30 @@ def _stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
     return _big_endian(words, total_bits).cpu().numpy().tobytes()
 
 
+def _sealed(seal, conf: Config, *args, bit_count: int = 0, symbols: int = 0) -> bytes:
+    """``seal(conf, *args)``, a host engine's seal, in the ``seal`` span."""
+    with trace.span("seal", bit_count=bit_count, symbols=symbols) as sp:
+        payload = seal(conf, *args)
+        sp.set(payload_bytes=len(payload))
+    return payload
+
+
+def _entropy_encode(bins_stream: torch.Tensor, radius: int, num: int, literals):
+    """K1, the host's tree, then K2+K3 and the literal gather
+    (``literals(slots)``) over the stream-order bins, each in its span:
+    (tree bytes, total bits, the packed words and the literals, both on the
+    bins' device)."""
+    with trace.span("entropy.hist", symbols=bins_stream.numel()):
+        hist, slots = ed.hist_and_literals(bins_stream, radius)   # hist on the host
+    with trace.span("entropy.tree") as sp:
+        tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, bins_stream.device)
+        sp.set(total_bits=total_bits)
+    with trace.span("entropy.pack", total_bits=total_bits):
+        words = ed.pack_bits(bins_stream, tc, tl, radius, total_bits)
+        unpred = literals(slots)
+    return tree, total_bits, words, unpred
+
+
 class Packed(NamedTuple):
     """The device half of an INTERP encode (:func:`pack_device`): what the
     host half (:func:`seal_packed`) seals into the payload."""
@@ -143,15 +168,17 @@ def pack_device(conf: Config, x: torch.Tensor) -> Packed:
     histogram, K2+K3's bit count), so work queued on other streams runs on."""
     plan = plan_for(conf)
     num = int(np.prod(conf.dims))
-    bins_list, b0, _ = encode_grid_fast(x, plan)
-    grid = bins_to_grid(bins_list, plan, b0, x.device)
-    perm = perm_for(conf, x.device)
-    bins_stream = stream_order.to_stream(grid, perm)
-    hist, slots = ed.hist_and_literals(bins_stream, plan.radius)   # hist on the host
-    tree, total_bits, tc, tl = _tree_and_tables(hist, plan.radius, num, x.device)
-    words = ed.pack_bits(bins_stream, tc, tl, plan.radius, total_bits)
-    unpred = stream_order.literal_values(x, perm, slots)
-    bits, unpred = _to_host(_big_endian(words, total_bits)), _to_host(unpred)
+    with trace.span("interp.passes", points=num):
+        bins_list, b0, _ = encode_grid_fast(x, plan)
+        grid = bins_to_grid(bins_list, plan, b0, x.device)
+    with trace.span("interp.stream_order"):
+        perm = perm_for(conf, x.device)
+        bins_stream = stream_order.to_stream(grid, perm)
+    tree, total_bits, words, unpred = _entropy_encode(
+        bins_stream, plan.radius, num, lambda slots: stream_order.literal_values(x, perm, slots))
+    with trace.span("copy.d2h", pinned=x.is_cuda) as sp:
+        bits, unpred = _to_host(_big_endian(words, total_bits)), _to_host(unpred)
+        sp.set(bytes=bits.nbytes + unpred.nbytes)
     done = None
     if x.device.type == "cuda":
         done = torch.cuda.Event()
@@ -162,10 +189,13 @@ def pack_device(conf: Config, x: torch.Tensor) -> Packed:
 def seal_packed(conf: Config, packed: Packed, cap: int) -> bytes:
     """The host half: waits for the copies of ``packed``, then frames and
     zstd-compresses the payload (runtime.interp_seal_packed)."""
-    if packed.done is not None:
-        packed.done.synchronize()
-    return runtime.interp_seal_packed(conf, packed.tree, packed.bits.numpy().tobytes(),
-                                      packed.total_bits, packed.num, packed.unpred.numpy(), cap)
+    with trace.span("copy.wait"):
+        if packed.done is not None:
+            packed.done.synchronize()
+        bits = packed.bits.numpy().tobytes()
+    return _sealed(runtime.interp_seal_packed, conf, packed.tree, bits, packed.total_bits,
+                   packed.num, packed.unpred.numpy(), cap, bit_count=packed.total_bits,
+                   symbols=packed.num)
 
 
 def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
@@ -197,15 +227,17 @@ def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
     bins_grid, g, sel, regb, qlu, qiu = encode_blocks_wavefront(
         x, conf.absErrorBound, radius, conf.lorenzo, conf.lorenzo2, conf.regression, stats)
     num = x.numel()
-    perm = bl.perm_for(conf.dims, x.device)
-    bins_stream = stream_order.to_stream(bins_grid, perm)
-    hist, slots = ed.hist_and_literals(bins_stream, radius)
-    tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, x.device)
-    words = ed.pack_bits(bins_stream, tc, tl, radius, total_bits)
-    bits_bytes = _stream_bytes(words, total_bits)
-    unpred = stream_order.literal_values(g, perm, slots).cpu().numpy()
-    return runtime.blockwise_seal_packed(conf, tree, bits_bytes, total_bits, num, sel, regb,
-                                         qlu, qiu, unpred, cap)
+    with trace.span("lorenzo.stream_order"):
+        perm = bl.perm_for(conf.dims, x.device)
+        bins_stream = stream_order.to_stream(bins_grid, perm)
+    tree, total_bits, words, unpred = _entropy_encode(
+        bins_stream, radius, num, lambda slots: stream_order.literal_values(g, perm, slots))
+    with trace.span("copy.d2h", pinned=False) as sp:
+        bits_bytes = _stream_bytes(words, total_bits)
+        unpred = unpred.cpu().numpy()
+        sp.set(bytes=len(bits_bytes) + unpred.nbytes)
+    return _sealed(runtime.blockwise_seal_packed, conf, tree, bits_bytes, total_bits, num, sel,
+                   regb, qlu, qiu, unpred, cap, bit_count=total_bits, symbols=num)
 
 
 def nopred_bins(flat: torch.Tensor, eb: float, radius: int) -> torch.Tensor:
@@ -231,12 +263,12 @@ def encode_payload_device_nopred(conf: Config, x: torch.Tensor, cap: int) -> byt
     flat = x.reshape(-1)
     num = flat.numel()
     bins = nopred_bins(flat, conf.absErrorBound, radius)
-    hist, slots = ed.hist_and_literals(bins, radius)
-    tree, total_bits, tc, tl = _tree_and_tables(hist, radius, num, x.device)
-    words = ed.pack_bits(bins, tc, tl, radius, total_bits)
+    tree, total_bits, words, unpred = _entropy_encode(
+        bins, radius, num, lambda slots: flat.index_select(0, slots))
     bits_bytes = _stream_bytes(words, total_bits)
-    unpred = flat.index_select(0, slots).cpu().numpy()
-    return runtime.nopred_seal_packed(conf, tree, bits_bytes, total_bits, num, unpred, cap)
+    unpred = unpred.cpu().numpy()
+    return _sealed(runtime.nopred_seal_packed, conf, tree, bits_bytes, total_bits, num, unpred,
+                   cap, bit_count=total_bits, symbols=num)
 
 
 def encode_payload_device_biomd(conf: Config, x: torch.Tensor, cap: int, site: int,
@@ -264,7 +296,8 @@ def encode_payload_device_biomd(conf: Config, x: torch.Tensor, cap: int, site: i
     bins[:acols] = bins0.reshape(-1)
     bins[acols:last * acols] = bins_rest.reshape(-1).cpu().numpy()
     unpred = np.concatenate([unpred0, lits.cpu().numpy()])
-    return runtime.biomd_seal(conf, bins, unpred, site, first_fill, fill, cap)
+    return _sealed(runtime.biomd_seal, conf, bins, unpred, site, first_fill, fill, cap,
+                   symbols=bins.size)
 
 
 def encode_payload_device_biomdxtc(conf: Config, x: torch.Tensor, cap: int,
@@ -282,5 +315,6 @@ def encode_payload_device_biomdxtc(conf: Config, x: torch.Tensor, cap: int,
     stored = by_slices(lambda d: xtc.xtc_quantize(d, conf.absErrorBound),
                        torch.empty(live.shape, dtype=torch.int32, device=x.device), live)
     unpred = torch.masked_select(live, stored == -xtc.XTC_RADIUS)
-    return runtime.biomdxtc_seal(conf, stored.cpu().numpy(), unpred.cpu().numpy(), first_fill,
-                                 np.float32(fill), cap)
+    stored, unpred = stored.cpu().numpy(), unpred.cpu().numpy()
+    return _sealed(runtime.biomdxtc_seal, conf, stored, unpred, first_fill, np.float32(fill), cap,
+                   symbols=stored.size)

@@ -49,6 +49,7 @@ from ..config import ALGO, Config
 from ..ops import biomd_device as bd
 from ..parallel import chunked
 from ..stats import cal_abs_error_bound
+from ..utils import trace
 from . import device_decode, device_encode, tuner
 
 _FLOATS = (np.float32, np.float64)
@@ -120,7 +121,8 @@ def _device_encode_payload(conf: Config, data: np.ndarray, cap: int, device: tor
                            route: tuple) -> bytes:
     # conf.dims drops size-1 axes (reference setDims); the plan, the stream
     # order and the archive all use that shape
-    x = torch.from_numpy(np.ascontiguousarray(data).reshape(conf.dims)).to(device)
+    with trace.span("copy.h2d", bytes=data.nbytes, pinned=False):
+        x = torch.from_numpy(np.ascontiguousarray(data).reshape(conf.dims)).to(device)
     algo = conf.cmprAlgo
     if algo == ALGO.LORENZO_REG:
         return device_encode.encode_payload_device_blockwise(conf, x, cap)
@@ -146,12 +148,14 @@ def compress_payload_torch(conf: Config, data: np.ndarray, cap: int, device: tor
     if conf.openmp:
         n = nthreads or min(os.cpu_count() or 1, data.shape[0])
         return chunked.compress_chunked(conf, data, n, device)
-    cal_abs_error_bound(conf, data)
+    with trace.span("dispatch.bound"):
+        cal_abs_error_bound(conf, data)
     if conf.absErrorBound == 0:
         conf.cmprAlgo = ALGO.LOSSLESS
     if conf.cmprAlgo == ALGO.INTERP_LORENZO:
         if not tuner.tune(conf, data, device):     # trials on the device
-            runtime.tune_interp(conf, data)        # the engine's (1D fields)
+            with trace.span("dispatch.tune", engine=True):
+                runtime.tune_interp(conf, data)    # the engine's (1D fields)
     if conf.cmprAlgo == ALGO.LOSSLESS:
         return runtime.zstd_compress(data.tobytes())
     route = _encode_route(conf, data)

@@ -36,6 +36,7 @@ from ..config import ALGO, Config
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast, stack_plans
 from ..ops.stream_order import cache_device
 from ..stats import cal_abs_error_bound
+from ..utils import trace
 
 
 def _default_anchor_stride(conf: Config) -> None:
@@ -195,9 +196,12 @@ def _trial_ratios(blocks: torch.Tensor, conf: Config, edge: int, trials,
     so each ratio equals the engine's trial's."""
     ts = [_trial_conf(conf, edge, *trial) for trial in trials]
     num = float(edge ** conf.N * blocks.shape[0] * blocks.element_size())
-    return [num / len(runtime.interp_seal(t, stream.cpu().numpy(), unpred.cpu().numpy(),
-                                          trial_cap))
-            for t, (stream, unpred) in zip(ts, trial_streams(blocks, ts))]
+    with trace.span("tune.trials", trials=len(ts), blocks=blocks.shape[0]):
+        streams = trial_streams(blocks, ts)
+    with trace.span("tune.seal", trials=len(ts)):
+        return [num / len(runtime.interp_seal(t, stream.cpu().numpy(), unpred.cpu().numpy(),
+                                              trial_cap))
+                for t, (stream, unpred) in zip(ts, streams)]
 
 
 def tune(conf: Config, data: np.ndarray, device) -> bool:
@@ -206,6 +210,20 @@ def tune(conf: Config, data: np.ndarray, device) -> bool:
     or non-float fields: the caller runs the engine's tuner)."""
     if conf.N == 1 or data.dtype not in (np.float32, np.float64):
         return False
+    with trace.span("dispatch.tune") as sp:
+        with trace.span("tune.sample"):
+            blocks = _sampled_blocks(conf, data, device)
+        if blocks is not None:
+            sp.set(trials=_run_trials(conf, blocks, conf.num * data.dtype.itemsize))
+        # N >= 2: the reference runs its lorenzo arm for 1D only
+        # (SZAlgoInterp.hpp:227-241) -> use_interp is always true here
+        conf.cmprAlgo = ALGO.INTERP
+    return True
+
+
+def _sampled_blocks(conf: Config, data: np.ndarray, device):
+    """The bound made absolute, and the sampled blocks (K, edge, .., edge)
+    uploaded to `device`; None where the field is not tuned."""
     cal_abs_error_bound(conf, data)
     _default_anchor_stride(conf)
     N = conf.N
@@ -224,8 +242,7 @@ def tune(conf: Config, data: np.ndarray, device) -> bool:
     to_tune = (sbs + 1) ** N <= 0.05 * conf.num and \
         all(d >= sbs for d in conf.dims)
     if not to_tune:
-        conf.cmprAlgo = ALGO.INTERP
-        return True
+        return None
 
     starts = _profiling_starts(data, sbs, conf.absErrorBound, sbs // 4)
     per_block = (sbs + 1) ** N
@@ -234,12 +251,15 @@ def tune(conf: Config, data: np.ndarray, device) -> bool:
     blocks = _sample_blocks(data, sbs, sample_rate, profiling, starts)
     sampling_num = blocks.shape[0] * per_block
     if sampling_num == 0 or sampling_num >= conf.num * 0.2:
-        conf.cmprAlgo = ALGO.INTERP
-        return True
+        return None
+    return torch.from_numpy(blocks).to(device)
 
-    trial_cap = conf.num * data.dtype.itemsize
-    edge = sbs + 1
-    blocks = torch.from_numpy(blocks).to(device)
+
+def _run_trials(conf: Config, blocks: torch.Tensor, trial_cap: int) -> int:
+    """The three stages of trials over the sampled blocks, conf rewritten
+    with each stage's winner; returns the number of trials."""
+    N = conf.N
+    edge = blocks.shape[1]
     conf.interpDirection = 0
     conf.interpAlpha = 1.25
     conf.interpBeta = 2.0
@@ -267,7 +287,4 @@ def tune(conf: Config, data: np.ndarray, device) -> bool:
             best_interp = ratio
             conf.interpAlpha = a
             conf.interpBeta = b
-    # N >= 2: the reference runs its lorenzo arm for 1D only
-    # (SZAlgoInterp.hpp:227-241) -> use_interp is always true here
-    conf.cmprAlgo = ALGO.INTERP
-    return True
+    return 2 + 1 + len(pairs)

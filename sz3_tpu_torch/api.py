@@ -19,6 +19,7 @@ import torch
 from . import runtime
 from .algos.torch_backend import compress_payload_torch, decompress_payload_torch
 from .config import Config, DataType, SZ3_MAGIC_NUMBER, version_int, version_str
+from .utils import trace
 
 _HDR = struct.Struct("<IIQ")
 _DATA_VER = version_int((3, 3, 2))
@@ -110,11 +111,17 @@ def compress(data: Union[np.ndarray, torch.Tensor], conf: Optional[Config] = Non
     as the reference CLI does.
     """
     dev = _device(device)
-    arr = data.detach().cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
-    if arr.ndim > 4:
-        raise ValueError("data dimension higher than 4 is not supported")
-    c, cap = archive_conf(arr, conf, set_datatype)
-    return pack_archive(c, compress_payload_torch(c, arr, cap, dev, nthreads))
+    with trace.span("api.compress") as sp:
+        arr = data.detach().cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+        sp.set(nbytes=arr.nbytes, dims=arr.shape, dtype=arr.dtype.name)
+        if arr.ndim > 4:
+            raise ValueError("data dimension higher than 4 is not supported")
+        c, cap = archive_conf(arr, conf, set_datatype)
+        payload = compress_payload_torch(c, arr, cap, dev, nthreads)
+        with trace.span("archive.pack", payload_bytes=len(payload)):
+            blob = pack_archive(c, payload)
+        sp.set(algo=int(c.cmprAlgo), archive_bytes=len(blob))
+    return blob
 
 
 def decompress(blob: bytes, *, device="cuda", dtype=None) -> Tuple[torch.Tensor, Config]:
@@ -122,8 +129,14 @@ def decompress(blob: bytes, *, device="cuda", dtype=None) -> Tuple[torch.Tensor,
     effective config). `dtype` (numpy dtype or DataType) overrides the
     archive's dataType byte."""
     dev = _device(device)
-    conf, payload = open_archive(blob)
-    dt = None
-    if dtype is not None:
-        dt = dtype if isinstance(dtype, DataType) else runtime.np_dtype_id(np.empty(0, dtype=dtype))
-    return decompress_payload_torch(conf, payload, dt, dev), conf
+    with trace.span("api.decompress", archive_bytes=len(blob)) as sp:
+        with trace.span("archive.open"):
+            conf, payload = open_archive(blob)
+        dt = None
+        if dtype is not None:
+            dt = dtype if isinstance(dtype, DataType) else runtime.np_dtype_id(
+                np.empty(0, dtype=dtype))
+        out = decompress_payload_torch(conf, payload, dt, dev)
+        sp.set(nbytes=out.numel() * out.element_size(), dims=tuple(out.shape),
+               algo=int(conf.cmprAlgo))
+    return out, conf

@@ -53,6 +53,7 @@ from .blockwise_layout import (BS, PAD, T_KEEP, T_L1, Geometry, _noise, blocked,
 from .blockwise_wavefront import (cell_index, cell_types, check_sweep, lorenzo_sweep,
                                   padded_grid, reg_cells, sweep_planes)
 from .quantize import quantize
+from ..utils import trace
 
 E = BS ** 3
 DBL_MAX = float(np.finfo(np.float64).max)
@@ -218,50 +219,66 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
     if use_l2 or not (use_l1 or use_reg):
         raise ValueError("the device LORENZO_REG encode takes the rosters {L1}, {REG} and "
                          "{L1, REG}")
+    if stats is None:
+        stats = {}
     geo = geometry(x.shape)
+    with trace.span("lorenzo.encode", blocks=geo.nblk) as sp:
+        out = _encode(geo, x, float(eb), int(radius), use_l1, use_reg, stats)
+        sp.set(passes=stats["passes"])
+    return out
+
+
+def _encode(geo: Geometry, x: torch.Tensor, eb: float, radius: int, use_l1: bool,
+            use_reg: bool, stats: dict):
+    """encode_blocks_wavefront's sweep and certification, each phase in its
+    span; `stats` receives the passes and first differences."""
     dev = x.device
-    eb = float(eb)
-    radius = int(radius)
     single = not (use_l1 and use_reg)
-    g = torch.zeros(geo.grid, dtype=torch.float32, device=dev)
-    g[:geo.dims[0], :geo.dims[1], :geo.dims[2]] = x
-    ex = extents(geo, dev)
-    if use_reg:
-        def by_cell(a):         # (216, nblk): one row per in-block cell
-            return blocked(a, geo).permute(1, 3, 5, 0, 2, 4).reshape(E, geo.nblk)
-        raw = fits(by_cell(g), by_cell(valid_cells(geo, dev)), ex.reshape(3, -1))  # (4, nblk)
-    else:
-        raw = torch.zeros((4, geo.nblk), dtype=torch.float32, device=dev)
-    raw_host = raw.t().cpu().numpy()                                       # (nblk, 4)
-    raw_g = raw.reshape(4, *geo.nb)
-    orig_p = padded_grid(geo, g)
+    with trace.span("lorenzo.fits", reg=use_reg):
+        g = torch.zeros(geo.grid, dtype=torch.float32, device=dev)
+        g[:geo.dims[0], :geo.dims[1], :geo.dims[2]] = x
+        ex = extents(geo, dev)
+        if use_reg:
+            def by_cell(a):         # (216, nblk): one row per in-block cell
+                return blocked(a, geo).permute(1, 3, 5, 0, 2, 4).reshape(E, geo.nblk)
+            raw = fits(by_cell(g), by_cell(valid_cells(geo, dev)), ex.reshape(3, -1))  # (4, nblk)
+        else:
+            raw = torch.zeros((4, geo.nblk), dtype=torch.float32, device=dev)
+        raw_host = raw.t().cpu().numpy()                                       # (nblk, 4)
+        raw_g = raw.reshape(4, *geo.nb)
+        orig_p = padded_grid(geo, g)
     if single:      # one predictor: nothing is speculated
         is_reg = reg_valid(geo, dev) if use_reg else torch.zeros(geo.nb, dtype=torch.bool,
                                                                  device=dev)
     else:
-        is_reg, ok = select(geo, orig_p, orig_p, ex, raw_g, eb)
+        with trace.span("lorenzo.select", phase="speculate", pass_no=0):
+            is_reg, ok = select(geo, orig_p, orig_p, ex, raw_g, eb)
 
     # the sweep's reconstruction, made again in place by every pass
     rec = torch.empty(geo.padded, dtype=torch.float32, device=dev)
     passes, firsts, last_first = 0, [], -1
     while True:
         passes += 1
-        is_reg_h = is_reg.reshape(-1).cpu().numpy()
-        raw_commit = raw_host[is_reg_h]
-        regb, creg = runtime.blockwise_coef_chain_encode(eb / 4 / BS, eb / 4, raw_commit)
-        coef_rec = np.zeros((geo.nblk, 4), np.float32)
-        coef_rec[is_reg_h] = creg
-        rec.zero_()
-        reg_idx, reg_bins = reg_preplace_encode(
-            geo, g, rec, is_reg, torch.from_numpy(coef_rec).to(dev).reshape(*geo.nb, 4), eb,
-            radius)
-        types = cell_types(geo, torch.where(is_reg, T_KEEP, T_L1).to(torch.uint8).reshape(-1))
-        bins = sweep_encode(rec, types, g, eb, radius)
+        with trace.span("lorenzo.chain", pass_no=passes):
+            is_reg_h = is_reg.reshape(-1).cpu().numpy()
+            raw_commit = raw_host[is_reg_h]
+            regb, creg = runtime.blockwise_coef_chain_encode(eb / 4 / BS, eb / 4, raw_commit)
+            coef_rec = np.zeros((geo.nblk, 4), np.float32)
+            coef_rec[is_reg_h] = creg
+        with trace.span("lorenzo.preplace", pass_no=passes):
+            rec.zero_()
+            reg_idx, reg_bins = reg_preplace_encode(
+                geo, g, rec, is_reg, torch.from_numpy(coef_rec).to(dev).reshape(*geo.nb, 4), eb,
+                radius)
+            types = cell_types(geo, torch.where(is_reg, T_KEEP, T_L1).to(torch.uint8).reshape(-1))
+        with trace.span("lorenzo.sweep", cells=types.numel(), pass_no=passes):
+            bins = sweep_encode(rec, types, g, eb, radius)
         if single:
             firsts.append(-1)
             break
-        is_reg_true, ok = select(geo, orig_p, rec, ex, raw_g, eb)
-        first = _first_difference(is_reg_true.reshape(-1).cpu().numpy(), is_reg_h)
+        with trace.span("lorenzo.select", phase="certify", pass_no=passes):
+            is_reg_true, ok = select(geo, orig_p, rec, ex, raw_g, eb)
+            first = _first_difference(is_reg_true.reshape(-1).cpu().numpy(), is_reg_h)
         firsts.append(first)
         if first < 0:
             break
@@ -272,9 +289,8 @@ def encode_blocks_wavefront(x: torch.Tensor, eb: float, radius: int, use_l1: boo
         last_first = first
         is_reg = is_reg_true
         del bins, types, reg_idx, reg_bins      # the next pass makes them anew
-    if stats is not None:
-        stats["passes"] = passes
-        stats["first_differences"] = firsts
+    stats["passes"] = passes
+    stats["first_differences"] = firsts
 
     selection = np.zeros(0, np.int32)
     if not single:          # one entry per block with a valid pick; REG is roster index 1

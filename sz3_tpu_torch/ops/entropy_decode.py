@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..build import kernels
+from ..utils import trace
 
 W_BITS = 1024                       # window payload bits
 RUN_BITS = 128                      # runway: the early start that lets a window synchronise,
@@ -458,12 +459,13 @@ def upload_bytes(data, device, pad: int = 0) -> torch.Tensor:
     zero bytes and rounded up to a whole number of 32-bit words."""
     data = memoryview(data).cast("B")
     n = len(data)
-    out = torch.zeros(-(-(n + pad) // 4) * 4, dtype=torch.uint8, device=device)
-    if n:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)   # the buffer is only read
-            src = torch.frombuffer(data, dtype=torch.uint8)
-        out[:n].copy_(src)
+    with trace.span("copy.h2d", bytes=n, pinned=False):
+        out = torch.zeros(-(-(n + pad) // 4) * 4, dtype=torch.uint8, device=device)
+        if n:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)   # the buffer is only read
+                src = torch.frombuffer(data, dtype=torch.uint8)
+            out[:n].copy_(src)
     return out
 
 

@@ -52,6 +52,7 @@ from .api import _device, archive_conf, compress, decompress, pack_archive
 from .config import ALGO, EB, Config
 from .ops.interp_fast import _consts
 from .stats import cal_abs_error_bound
+from .utils import trace
 
 DEPTH = 3                  # fields in flight (serving.py:91)
 _BATCH_MODES = (EB.ABS, EB.REL, EB.PSNR, EB.ABS_AND_REL, EB.ABS_OR_REL)
@@ -63,21 +64,24 @@ def compress_batch(fields: Union[np.ndarray, torch.Tensor], conf: Optional[Confi
     standard SZ3 archives, each byte-identical to single-field compression
     of its field. Raises ValueError on an input that is not a stack."""
     dev = _device(device)
-    arr = fields.detach().cpu().numpy() if isinstance(fields, torch.Tensor) else np.asarray(fields)
-    if arr.ndim < 2:
-        raise ValueError("expected a [B, *dims] stack")
-    base = conf.copy() if conf is not None else Config(dims=arr.shape[1:])
-    base.set_dims(arr.shape[1:])            # drops size-1 axes like the reference
-    base.dataType = runtime.np_dtype_id(arr)
-    if base.cmprAlgo == ALGO.INTERP_LORENZO:
-        base.cmprAlgo = ALGO.INTERP         # the batch pins the algorithm: no tuner
-    if (base.cmprAlgo != ALGO.INTERP or base.errorBoundMode not in _BATCH_MODES
-            or (base.errorBoundMode == EB.ABS and base.absErrorBound <= 0)
-            or arr.dtype not in (np.float32, np.float64) or base.openmp):
-        return [compress(np.ascontiguousarray(f), base.copy(), device=dev) for f in arr]
-    _resolve_anchor_stride(base)
-    stack = np.ascontiguousarray(arr.reshape((arr.shape[0],) + tuple(base.dims)))
-    return _compress_batch_device_entropy(stack, base, dev, DEPTH)
+    with trace.span("serving.compress_batch") as sp:
+        arr = fields.detach().cpu().numpy() if isinstance(fields, torch.Tensor) \
+            else np.asarray(fields)
+        sp.set(nbytes=arr.nbytes, dims=arr.shape, dtype=arr.dtype.name)
+        if arr.ndim < 2:
+            raise ValueError("expected a [B, *dims] stack")
+        base = conf.copy() if conf is not None else Config(dims=arr.shape[1:])
+        base.set_dims(arr.shape[1:])            # drops size-1 axes like the reference
+        base.dataType = runtime.np_dtype_id(arr)
+        if base.cmprAlgo == ALGO.INTERP_LORENZO:
+            base.cmprAlgo = ALGO.INTERP         # the batch pins the algorithm: no tuner
+        if (base.cmprAlgo != ALGO.INTERP or base.errorBoundMode not in _BATCH_MODES
+                or (base.errorBoundMode == EB.ABS and base.absErrorBound <= 0)
+                or arr.dtype not in (np.float32, np.float64) or base.openmp):
+            return [compress(np.ascontiguousarray(f), base.copy(), device=dev) for f in arr]
+        _resolve_anchor_stride(base)
+        stack = np.ascontiguousarray(arr.reshape((arr.shape[0],) + tuple(base.dims)))
+        return _compress_batch_device_entropy(stack, base, dev, DEPTH)
 
 
 def _compress_batch_device_entropy(stack: np.ndarray, base: Config, device: torch.device,
@@ -93,37 +97,43 @@ def _compress_batch_device_entropy(stack: np.ndarray, base: Config, device: torc
         de.perm_for(base, device)           # the stream order, cached, on the caller's stream
     futures = []
 
-    def one(i: int, c: Config, cap: int, packed: Optional[de.Packed]) -> bytes:
-        if packed is None:                  # a bound of 0: lossless
-            return pack_archive(c, runtime.zstd_compress(stack[i].tobytes()))
-        return pack_archive(c, finish_payload(c, stack[i], cap,
-                                              lambda: de.seal_packed(c, packed, cap)))
+    def one(i: int, c: Config, cap: int, packed: Optional[de.Packed], field) -> bytes:
+        # on a worker thread: the field's span, handed over, is the parent
+        with trace.span("serving.seal", parent=field, field=i):
+            if packed is None:                  # a bound of 0: lossless
+                return pack_archive(c, runtime.zstd_compress(stack[i].tobytes()))
+            return pack_archive(c, finish_payload(c, stack[i], cap,
+                                                  lambda: de.seal_packed(c, packed, cap)))
 
     with ThreadPoolExecutor(max_workers=max(1, depth - 1)) as seals:
         try:
             for i in range(stack.shape[0]):
-                if i >= depth:
-                    futures[i - depth].result()     # at most `depth` fields in flight
-                c, cap = archive_conf(stack[i], base)
-                cal_abs_error_bound(c, stack[i])
-                if c.absErrorBound == 0:
-                    c.cmprAlgo = ALGO.LOSSLESS
-                    futures.append(seals.submit(one, i, c, cap, None))
-                    continue
-                ctx = contextlib.nullcontext()
-                if cuda:
-                    # the pass constants of this field's bounds, uploaded on the
-                    # caller's stream from pageable memory: the field's stream
-                    # waits for them (and for the stream order) before it reads
-                    _consts(de.plan_for(c), device)
-                    s = streams[i % depth]
-                    s.wait_stream(caller)
-                    ctx = torch.cuda.stream(s)
-                with ctx:
-                    x = torch.from_numpy(stack[i]).to(device)
-                    packed = de.pack_device(c, x)
-                    del x
-                futures.append(seals.submit(one, i, c, cap, packed))
+                with trace.span("serving.field", field=i):
+                    field = trace.current()
+                    if i >= depth:
+                        futures[i - depth].result()     # at most `depth` fields in flight
+                    c, cap = archive_conf(stack[i], base)
+                    with trace.span("dispatch.bound"):
+                        cal_abs_error_bound(c, stack[i])
+                    if c.absErrorBound == 0:
+                        c.cmprAlgo = ALGO.LOSSLESS
+                        futures.append(seals.submit(one, i, c, cap, None, field))
+                        continue
+                    ctx = contextlib.nullcontext()
+                    if cuda:
+                        # the pass constants of this field's bounds, uploaded on the
+                        # caller's stream from pageable memory: the field's stream
+                        # waits for them (and for the stream order) before it reads
+                        _consts(de.plan_for(c), device)
+                        s = streams[i % depth]
+                        s.wait_stream(caller)
+                        ctx = torch.cuda.stream(s)
+                    with ctx:
+                        with trace.span("copy.h2d", bytes=stack[i].nbytes, pinned=False):
+                            x = torch.from_numpy(stack[i]).to(device)
+                        packed = de.pack_device(c, x)
+                        del x
+                    futures.append(seals.submit(one, i, c, cap, packed, field))
             return [f.result() for f in futures]
         finally:
             if cuda:
@@ -141,12 +151,13 @@ def decompress_batch(blobs: Sequence[bytes], dtype=None, *, device="cuda") -> to
     if len(blobs) == 0:
         raise ValueError("need at least one archive")
     out = None
-    for i, blob in enumerate(blobs):
-        x, _ = decompress(blob, device=dev, dtype=dtype)
-        if out is None:
-            out = torch.empty((len(blobs),) + tuple(x.shape), dtype=x.dtype, device=dev)
-        if tuple(x.shape) != tuple(out.shape[1:]) or x.dtype != out.dtype:
-            raise ValueError(f"archive {i} decodes to {tuple(x.shape)} {x.dtype}, archive 0 "
-                             f"to {tuple(out.shape[1:])} {out.dtype}")
-        out[i] = x
+    with trace.span("serving.decompress_batch", archives=len(blobs)):
+        for i, blob in enumerate(blobs):
+            x, _ = decompress(blob, device=dev, dtype=dtype)
+            if out is None:
+                out = torch.empty((len(blobs),) + tuple(x.shape), dtype=x.dtype, device=dev)
+            if tuple(x.shape) != tuple(out.shape[1:]) or x.dtype != out.dtype:
+                raise ValueError(f"archive {i} decodes to {tuple(x.shape)} {x.dtype}, archive 0 "
+                                 f"to {tuple(out.shape[1:])} {out.dtype}")
+            out[i] = x
     return out

@@ -1,7 +1,8 @@
 """Small utilities (counterpart of sz3_tpu/utils/__init__.py): scoped
 wall-clock timing (the reference utils/Timer.hpp analog, gated by
-SZT_DEBUG_TIMINGS like the reference's SZ3_DEBUG_TIMINGS CMake option) and a
-device trace over torch.profiler."""
+SZT_DEBUG_TIMINGS like the reference's SZ3_DEBUG_TIMINGS CMake option), the
+port's layer spans (``utils.trace``, off by default) and a device trace over
+torch.profiler that shows those spans over the kernels."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from . import trace
 
 
 def timings_enabled() -> bool:
@@ -55,7 +58,10 @@ def timed(name: str):
 def device_trace(log_dir):
     """Trace the block with torch.profiler (the host and, where there is a
     CUDA device, the card) and write a Chrome trace (chrome://tracing,
-    Perfetto) to ``<log_dir>/trace.json``. Yields the profiler."""
+    Perfetto) to ``<log_dir>/trace.json``, in which the port's layer spans
+    (``utils.trace``, on for the block) name the ranges over the kernels
+    they launched. Yields the profiler; the block's spans stay for
+    ``trace.spans()``, and tracing is left as it was before the block."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -63,8 +69,15 @@ def device_trace(log_dir):
         activities.append(ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+    was_on = trace.enabled()
+    if not was_on:
+        trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            trace.disable()
     prof.export_chrome_trace(str(out / "trace.json"))
