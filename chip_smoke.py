@@ -25,7 +25,9 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      inputs and on a synthetic 253x255x257 grid (random first-order,
      second-order and kept cells, bins across the quantizer's range, NaN,
      Inf and subnormal values), with its bytes bound and its dependency
-     bound (planes times one empty dependent launch, measured here); the
+     bound (planes times one empty dependent launch, measured here), and
+     on the 512^3 field's own inputs held to its plain versions and timed
+     beside both bounds; the
      BIOMD frame recurrence (biomd_frames) in both forms on 64 frames of
      9,999 atoms (sites 3 and 4) with NaN, Inf, subnormal and huge values;
      the MDZ frame recurrence (mdz_frames) in both forms on 64 frames of
@@ -1135,6 +1137,65 @@ def main() -> int:
           flush=True)
     del enc_in, dec_in, rec_e, types_e, orig_e, rec_d, types_d, bins_d, lits_d, sweep_cases
     del s_rec, s_types, s_bins, s_vals
+    torch.cuda.empty_cache()
+
+    # the same at 512^3, the size users store: both forms held bit for bit to
+    # their plain versions on the inputs of one encode and one decode on the
+    # card (the 516^3 rounded grid; the layout's 32-bit row math and its
+    # conversions depend on the grid's size), then timed (phase 5 holds the
+    # 512^3 LORENZO_REG archive sha256-equal to the engine's)
+    if 512 not in fields:
+        t = time.perf_counter()
+        fields[512] = nyx_like(512)
+        print(f"nyx_like(512): {time.perf_counter() - t:.2f} s", flush=True)
+        native[512] = sync_time(lambda: native_compress(fields[512], szp.Config(absErrorBound=EB)))
+    with captured(wfe, "sweep_encode") as enc_in:
+        lr_blob512 = szp.compress(fields[512], lr_conf(), device="cuda")
+    with captured(wf, "sweep_decode") as dec_in:
+        szp.decompress(lr_blob512, device="cuda")
+    del lr_blob512
+    rec_e, types_e, orig_e, eb_e, rad_e = enc_in["args"]
+    rec_d, types_d, bins_d, lits_d, eb_d, rad_d = dec_in["args"]
+    for form in ("encode", "decode"):
+        if form == "encode":
+            rk, rp = rec_e.clone(), rec_e.clone()
+            bk = wfe.sweep_encode(rk, types_e, orig_e, eb_e, rad_e)
+            bp = wfe.sweep_encode_plain(rp, types_e, orig_e, eb_e, rad_e)
+            torch.cuda.synchronize()
+            err = max(bits_diff(rk, rp), max_abs_diff(bk, bp))
+            del bk, bp
+        else:
+            rk, rp = rec_d.clone(), rec_d.clone()
+            wf.sweep_decode(rk, types_d, bins_d, lits_d, eb_d, rad_d)
+            wf.sweep_decode_plain(rp, types_d, bins_d, lits_d, eb_d, rad_d)
+            torch.cuda.synchronize()
+            err = bits_diff(rk, rp)
+        check(err == 0, f"lorenzo_sweep 512^3 {form}: differs from its plain version (max abs "
+                        f"diff {err})")
+        sweep_err = max(sweep_err, err)
+        print(f"lorenzo_sweep 512^3 {form}: bit-equal to plain ({tuple(types_d.shape)} grid)",
+              flush=True)
+        del rk, rp
+    scratch = rec_d.clone()
+    swd5_ms = event_ms(lambda: wf.sweep_decode(scratch, types_d, bins_d, lits_d, eb_d, rad_d))
+    scratch = rec_e.clone()
+    swe5_ms = event_ms(lambda: wfe.sweep_encode(scratch, types_e, orig_e, eb_e, rad_e))
+    del scratch
+    gx, gy, gz = types_d.shape
+    planes5 = gx + gy + gz - 2
+    n1 = [int((t == bl.T_L1).sum()) for t in (types_d, types_e)]
+    n2 = [int((t == bl.T_L2).sum()) for t in (types_d, types_e)]
+    swd5_bytes, swe5_bytes = sweep_bytes(types_d, bins_d), sweep_bytes(types_e)
+    swd5_bound = bound(swd5_bytes, 12 * n1[0] + 56 * n2[0])
+    swe5_bound = bound(swe5_bytes, 23 * n1[1] + 67 * n2[1])
+    sw5_dep_ms = planes5 * empty_ms
+    print(f"lorenzo_sweep at 512^3 (grid {gx}x{gy}x{gz}, {planes5} planes, one launch each and "
+          f"the layout's conversions; L1 cells decode/encode {n1}, L2 {n2}): decode kernel "
+          f"{swd5_ms:.4f} ms, encode kernel {swe5_ms:.4f} ms; bound by "
+          f"bytes or operations: decode {swd5_bound[0]:.5f} ms by {swd5_bound[1]} ({swd5_bytes} "
+          f"bytes), encode {swe5_bound[0]:.5f} ms by {swe5_bound[1]} ({swe5_bytes} bytes); "
+          f"dependency bound {planes5} x {empty_ms * 1e3:.3f} us = {sw5_dep_ms:.4f} ms", flush=True)
+    del enc_in, dec_in, rec_e, types_e, orig_e, rec_d, types_d, bins_d, lits_d
     torch.cuda.empty_cache()
 
     # the BIOMD frame recurrence (biomd_frames.cu) in both forms against its
@@ -3217,7 +3278,9 @@ def main() -> int:
             sweep_err, swd_ms, swd_plain_ms, swd_bound, None,
             also_replaces="sz3_tpu/ops/blockwise_wavefront_encode.py:284",
             encode_ms=swe_ms, encode_plain_ms=swe_plain_ms, encode_bound_ms=swe_bound[0],
-            encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms),
+            encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms, ms_512=swd5_ms,
+            encode_ms_512=swe5_ms, bound_ms_512=swd5_bound[0],
+            encode_bound_ms_512=swe5_bound[0], dependency_bound_ms_512=sw5_dep_ms),
         row("biomd_frames", "biomd_frames.cu", "sz3_tpu/ops/biomd_device.py:117", frames_err,
             bfr_ms, bfr_plain_ms, bfr_bound, None,
             also_replaces="sz3_tpu/ops/biomd_device.py:95", encode_ms=bfe_ms,

@@ -165,7 +165,7 @@ def kernels() -> C.CDLL:
                                        p, p, p, p]
         lib.szt_lorenzo_sweep.restype = i32
         lib.szt_lorenzo_sweep.argtypes = [p, p, p, p, i32, i32, i32, C.c_double, C.c_double,
-                                          i32, i32, p]
+                                          i32, i32, p, i64, p]
         lib.szt_biomd_frames.restype = i32
         lib.szt_biomd_frames.argtypes = [p, p, p, p, i64, i32, i32, i32, C.c_double, C.c_double,
                                          i32, i32, p]

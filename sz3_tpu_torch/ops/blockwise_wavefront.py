@@ -13,12 +13,18 @@ earlier planes, whatever block it lies in.
 
   lorenzo_sweep    csrc/lorenzo_sweep.cu, where the JAX package runs the
                    lax.scan of _jit_wavefront (decode) and _jit_wavefront_enc
-                   (encode, ops/blockwise_wavefront_encode.py): one launch
-                   per plane over the unskewed, front-padded reconstruction,
-                   in place. The JAX package shears the grid so that each
-                   plane is contiguous, because the TPU has no cheap gather;
-                   here a thread computes its cell's address. ``launches``
-                   counts sweeps (one C call, NX + NY + NZ - 2 launches).
+                   (encode, ops/blockwise_wavefront_encode.py). It takes and
+                   hands back the natural, front-padded reconstruction, and
+                   inside works in the plane-major layout (``plane_index``):
+                   each plane x + y + z = t one contiguous slab of rows of
+                   fixed y, z ascending, sized to the padded cells. So a
+                   warp's lanes read and write consecutive addresses, and
+                   the stencil's taps come from the last few planes, in L2.
+                   One C call converts the arrays in (tiled transposes,
+                   ``to_planes_plain`` in plain PyTorch), launches one
+                   kernel per plane (NX + NY + NZ - 2), and converts rec
+                   (and the encode's bins) back (``from_planes_plain``).
+                   ``launches`` counts sweeps.
 
 The wrappers (sweep_decode here, sweep_encode in
 ops/blockwise_wavefront_encode.py) run the plain PyTorch versions
@@ -232,6 +238,84 @@ def check_sweep(rec, types, vals, radius, bins=None) -> None:
         raise ValueError(f"unsupported device {rec.device}")
 
 
+# ---- the sweep's plane-major layout ------------------------------------------------
+
+def _tri(k: torch.Tensor) -> torch.Tensor:
+    k = k.clamp(min=0)
+    return k * (k + 1) // 2
+
+
+def _tet(k: torch.Tensor) -> torch.Tensor:
+    k = k.clamp(min=0)
+    return k * (k + 1) * (k + 2) // 6
+
+
+def _below2(s, p: int, q: int):
+    """The (x, z) pairs of [0, p) x [0, q) with x + z < s."""
+    return _tri(s) - _tri(s - p) - _tri(s - q) + _tri(s - p - q)
+
+
+def _below3(t, p: int, r: int, q: int):
+    """The cells of [0, p) x [0, r) x [0, q) with x + y + z < t."""
+    return (_tet(t) - _tet(t - p) - _tet(t - r) - _tet(t - q) + _tet(t - p - r)
+            + _tet(t - p - q) + _tet(t - r - q) - _tet(t - p - r - q))
+
+
+def plane_cells(grid) -> int:
+    """The plane-major layout's size for the rounded grid `grid`: its padded
+    cells, not the box of its planes."""
+    return int(np.prod([g + PAD for g in grid]))
+
+
+def plane_index(grid, device="cpu") -> torch.Tensor:
+    """Each padded cell's position in the sweep's plane-major layout of the
+    rounded grid `grid`, (NX+2, NY+2, NZ+2) int64: plane t = x + y + z is
+    the slab [below3(t), below3(t + 1)), its rows (fixed y) in ascending y,
+    each row's z ascending, as csrc/lorenzo_sweep.cu places them."""
+    p, r, q = (g + PAD for g in grid)
+    x = torch.arange(p, device=device).reshape(-1, 1, 1)
+    y = torch.arange(r, device=device).reshape(1, -1, 1)
+    z = torch.arange(q, device=device).reshape(1, 1, -1)
+    t, s = x + y + z, x + z + 1
+    return (_below3(t, p, r, q) + _below2(t + 1, p, q) - _below2(s, p, q)
+            - (s - p).clamp(min=0) + z)
+
+
+def to_planes_plain(nat: torch.Tensor, grid) -> torch.Tensor:
+    """Plain version of the sweep's conversion into the plane-major layout
+    (convert<true> in csrc/lorenzo_sweep.cu): `nat`, the padded grid or the
+    rounded grid `grid` itself, flat with plane_cells(grid) entries; zeros at
+    the pad's cells for an array of the rounded grid."""
+    shape, padded = tuple(nat.shape), tuple(g + PAD for g in grid)
+    if shape not in (padded, tuple(grid)):
+        raise ValueError(f"array of shape {shape} on neither the grid {tuple(grid)} nor its "
+                         f"padded grid")
+    lo = 0 if shape == padded else PAD
+    pm = torch.zeros(plane_cells(grid), dtype=nat.dtype, device=nat.device)
+    pm[plane_index(grid, nat.device)[lo:, lo:, lo:].reshape(-1)] = nat.reshape(-1)
+    return pm
+
+
+def from_planes_plain(pm: torch.Tensor, grid, padded: bool) -> torch.Tensor:
+    """Plain version of the sweep's conversion out of the plane-major layout
+    (convert<false>): `pm` in the natural layout, the padded grid or
+    (padded False) the rounded grid `grid`."""
+    lo = 0 if padded else PAD
+    return pm[plane_index(grid, pm.device)[lo:, lo:, lo:]]
+
+
+def _planes(grid) -> int:
+    """The padded grid's planes x + y + z = t."""
+    return sum(grid) + 3 * PAD - 2
+
+
+def sweep_scratch_bytes(grid) -> int:
+    """The sweep's scratch: 13 bytes a padded cell (the plane-major
+    reconstruction, bins and values, 4 bytes each, and types), rounded up
+    to 8, then each plane's first position (8 bytes a plane)."""
+    return -(-13 * plane_cells(grid) // 8) * 8 + 8 * _planes(grid)
+
+
 def lorenzo_sweep(rec: torch.Tensor, types: torch.Tensor, ints: torch.Tensor,
                   vals: torch.Tensor, eb: float, radius: int, encode: bool) -> None:
     """Launch the element sweep on CUDA tensors checked by check_sweep: the
@@ -241,12 +325,17 @@ def lorenzo_sweep(rec: torch.Tensor, types: torch.Tensor, ints: torch.Tensor,
     float32, or its literal. Encode: `vals` holds the original values and
     `ints` receives the bins (0 at T_KEEP cells); a cell is quantized as
     ops/quantize.quantize does and `rec` receives its reconstruction. Cells
-    of type T_KEEP are left as they are."""
+    of type T_KEEP are left as they are. The sweep runs in the plane-major
+    layout, in a scratch of sweep_scratch_bytes; its conversions in and out
+    are part of the call."""
     nx, ny, nz = types.shape
+    scratch = torch.empty(sweep_scratch_bytes(types.shape), dtype=torch.uint8,
+                          device=rec.device)
     stream = torch.cuda.current_stream(rec.device).cuda_stream
     rc = kernels().szt_lorenzo_sweep(rec.data_ptr(), types.data_ptr(), ints.data_ptr(),
                                      vals.data_ptr(), nx, ny, nz, float(eb), 1.0 / eb,
-                                     radius, int(encode), stream)
+                                     radius, int(encode), scratch.data_ptr(), scratch.numel(),
+                                     stream)
     if rc != 0:
         raise RuntimeError(f"szt_lorenzo_sweep: CUDA error {rc}")
     lorenzo_sweep.launches += 1

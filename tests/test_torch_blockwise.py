@@ -401,6 +401,56 @@ def test_plain_encode_sweep_matches_jax(gdims):
     assert torch.equal(rec2, rec)
 
 
+# ---- the sweep's plane-major layout ------------------------------------------------
+
+PLANE_GRIDS = [(1, 1, 1), (6, 6, 6), (5, 7, 3), (6, 30, 12), (66, 6, 126), (126, 66, 6)]
+PLANE_IDS = ["x".join(map(str, g)) for g in PLANE_GRIDS]
+
+
+@pytest.mark.parametrize("grid", PLANE_GRIDS, ids=PLANE_IDS)
+def test_plane_layout_holds_each_plane_in_row_order(grid):
+    """plane_index is a permutation of the padded cells (the layout is their
+    count, not the box of the planes), plane t = x + y + z is the slab
+    [below3(t), below3(t + 1)) and holds exactly the cells of that plane, in
+    (y, z) order."""
+    p, r, q = (g + bl.PAD for g in grid)
+    n = wf.plane_cells(grid)
+    assert n == p * r * q < (p + r + q - 2) * r * q
+    idx = wf.plane_index(grid).reshape(-1)
+    assert torch.equal(torch.sort(idx).values, torch.arange(n))
+    x, y, z = (a.reshape(-1) for a in torch.meshgrid(
+        torch.arange(p), torch.arange(r), torch.arange(q), indexing="ij"))
+    at = torch.empty(n, dtype=torch.int64)
+    at[idx] = torch.arange(n)                   # the natural cell at each position
+    t = (x + y + z)[at]
+    starts = wf._below3(torch.arange(p + r + q - 1), p, r, q)
+    assert int(starts[0]) == 0 and int(starts[-1]) == n
+    slab = torch.searchsorted(starts, torch.arange(n), right=True) - 1
+    assert torch.equal(t, slab)
+    key = (t * r + y[at]) * q + z[at]
+    assert bool((key[1:] > key[:-1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint8],
+                         ids=["f32", "i32", "u8"])
+@pytest.mark.parametrize("grid", PLANE_GRIDS, ids=PLANE_IDS)
+def test_plane_conversions_round_trip(grid, dtype):
+    """The plain conversions (the twins of the sweep's convert<true> and
+    convert<false>): into the plane-major layout and back is the identity,
+    on the padded grid and on the rounded grid (whose pad cells stay zero in
+    the layout)."""
+    g = torch.Generator().manual_seed(sum(grid))
+    padded = tuple(v + bl.PAD for v in grid)
+    for shape, is_padded in ((padded, True), (grid, False)):
+        nat = torch.randint(1, 250, shape, generator=g).to(dtype)
+        pm = wf.to_planes_plain(nat, grid)
+        assert pm.shape == (wf.plane_cells(grid),) and pm.dtype == dtype
+        assert torch.equal(wf.from_planes_plain(pm, grid, is_padded), nat)
+        assert int((pm != 0).sum()) == nat.numel()
+    with pytest.raises(ValueError):
+        wf.to_planes_plain(torch.zeros((2, 3, 4), dtype=dtype), grid)
+
+
 def test_jax_device_entropy_route_gives_the_same_archive(monkeypatch):
     """The JAX package's device-entropy LORENZO_REG route (Pallas kernels in
     interpret mode) and the port write the same archive."""

@@ -382,11 +382,13 @@ def _sweep_case(shape, seed):
     return rec, *(torch.from_numpy(a) for a in (types, bins, vals))
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (6, 6, 6), (12, 18, 6), (2, 40, 3), (37, 29, 45)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (6, 6, 6), (12, 18, 6), (2, 40, 3), (37, 29, 45),
+                                   (6, 30, 12), (66, 6, 126), (126, 66, 6)])
 @pytest.mark.parametrize("eb", [1e-3, 1e-1])
 def test_lorenzo_sweep_matches_plain(dev, shape, eb):
     """Both forms of the kernel equal their plain versions bit for bit, on
-    grid edges and random types; one launch counted per sweep."""
+    grid edges and random types, grids thin in y and in z among them (the
+    plane-major layout's rows); one launch counted per sweep."""
     from sz3_tpu_torch.ops import blockwise_wavefront as twf
     from sz3_tpu_torch.ops import blockwise_wavefront_encode as twfe
 
