@@ -4,7 +4,9 @@ path broken underneath, each driven through a whole run of the cell (its
 entry, inputs, window and check) at a size a CPU test holds. The faults a
 cell can have: a call that returns its state unchanged (the previous
 answer), half of the answer left out, and an answer altered where it is
-produced. Exchanges between chips: every cell runs on one chip."""
+produced. Exchanges between chips: every cell runs on one chip. Every cell
+of BENCHMARK.json goes through these, and so does each configuration file
+and traffic mix that no cell names yet (conftest.with_unnamed)."""
 
 import pytest
 
@@ -12,9 +14,7 @@ import sz3_tpu_torch
 from sz3_tpu_torch import serving
 from szbench.reference.control import Control
 
-from .conftest import CELLS, KEPT, run_small
-
-ALL = CELLS + tuple(KEPT)
+from .conftest import ALL, run_small
 
 
 @pytest.mark.parametrize("name", ALL)
