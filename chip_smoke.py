@@ -153,7 +153,21 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      fields, which take the engine's route: the eight integer dtypes at 64^3
      in one archive and in 8 chunks, uint16 at 512^3 and int32 at 256^3,
      with no kernel launched and no device memory taken by a compress, walls
-     beside the engine's; the phase's time.
+     beside the engine's; the phase's time;
+ 14. the benchmark's cell cesm2d-fields against the plain reference of SZ3's
+     2D interpolation (szbench/reference/interp_plain.py): its 16 CESM-ATM
+     fields at 1800 x 3600, made by the cell's generator from the
+     configuration's data_seed, each compressed and decompressed through the
+     benchmark's own calls (szbench/harness/port.py) under the cell's
+     traffic (the default Config, the tuner on); the reference run on the
+     card with the Config each archive carries. Every decoded field
+     bit-equal to the reference's reconstruction, the bins of
+     encode_grid_fast equal to the reference's, the engine's stream order
+     equal to the reference's, and every decoded value within the bound
+     worked out again from the input (the cell's check, max_err_over_eb <=
+     1.0); the tuner's pick a field, read from its dispatch.tune span, equal to
+     the archive's Config. Alone: ``python3 -c "import torch, chip_smoke;
+     chip_smoke.phase14_cesm2d(torch.device('cuda'))"``.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -300,6 +314,90 @@ def _phase9_rank(rank: int, world: int, store: str, out: str, field: str, modes)
     finally:
         sharded.dist.destroy_process_group()
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase14_cesm2d(dev) -> dict:
+    """Phase 14: the fields of the cell cesm2d-fields through the benchmark's
+    calls, each held to the plain reference of SZ3's 2D interpolation."""
+    import numpy as np
+    import torch
+
+    import sz3_tpu_torch as szp
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
+    from sz3_tpu_torch.utils import trace
+    from szbench.harness import manifest, port
+    from szbench.reference import errbound
+    from szbench.reference import interp_plain as ip
+
+    t14 = time.perf_counter()
+    cell = manifest.find_cell(manifest.load_manifest(ROOT), "cesm2d-fields", ROOT)
+    cfg = cell.config
+    gen = manifest.generator(cfg["generator"])
+    pool = gen.make(tuple(cfg["shape"]), int(cfg["fields"]), int(cfg["data_seed"]), dev)
+    # host arrays, as the cell hands them over
+    pool = pool.to(getattr(torch, cfg["dtype"])).cpu().numpy()
+    program = port.Port(dev)
+    conf = program.config(port.settings(cfg, cell.traffic))
+    rows = []
+    traced = trace.enabled()
+    trace.enable(ranges=False)          # the tuner's pick, read from its dispatch.tune span
+    for v, x in enumerate(pool):
+        trace.spans()
+        t = time.perf_counter()
+        blob = program.compress(x, conf)
+        out, carried = szp.decompress(blob, device=dev)     # Port.decompress, with the Config
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        tune, = [sp.attrs for sp in trace.spans() if sp.name == "dispatch.tune"]
+        xd = torch.from_numpy(x).to(dev)
+        ref = ip.encode(xd, **ip.settings(carried))
+        plan = build_fast_plan(tuple(cfg["shape"]), interp_algo=int(carried.interpAlgo),
+                               direction=carried.interpDirection,
+                               anchor_stride=carried.interpAnchorStride,
+                               alpha=carried.interpAlpha, beta=carried.interpBeta,
+                               eb=carried.absErrorBound, quantbin_cnt=carried.quantbinCnt)
+        bins, b0, _ = encode_grid_fast(xd, plan)
+        eb = errbound.abs_bound(xd, cfg["error_bound"])
+        rows.append({
+            "field": v, "algo": int(carried.cmprAlgo), "interp_algo": int(carried.interpAlgo),
+            "direction": carried.interpDirection, "alpha": carried.interpAlpha,
+            "beta": carried.interpBeta, "anchor": carried.interpAnchorStride,
+            "ratio": x.nbytes / len(blob), "round_trip_s": wall, "tune": tune,
+            "tune_is_carried": (tune["interp_algo"], tune["direction"], tune["alpha"],
+                                tune["beta"]) == (int(carried.interpAlgo), carried.interpDirection,
+                                                  carried.interpAlpha, carried.interpBeta),
+            "bit_equal": bool(torch.equal(out.view(torch.int32), ref.recon.view(torch.int32))),
+            "bins_equal": bool(torch.equal(bins_to_grid(bins, plan, b0, dev), ref.bins)),
+            "order_equal": bool(np.array_equal(runtime.interp_order(carried),
+                                               ref.order.cpu().numpy())),
+            "unpred": int(ref.unpred.numel()),
+            "max_err_over_eb": errbound.max_abs_error(xd, out) / eb})
+        print(f"phase 14 field {v}: {json.dumps(rows[-1])}", flush=True)
+        del out, xd, ref, bins
+    if not traced:
+        trace.disable()
+    summary = {"fields": len(rows), "bit_equal": sum(r["bit_equal"] for r in rows),
+               "bins_equal": sum(r["bins_equal"] for r in rows),
+               "order_equal": sum(r["order_equal"] for r in rows),
+               "max_err_over_eb": max(r["max_err_over_eb"] for r in rows),
+               "picks": sorted({(r["interp_algo"], r["direction"], r["alpha"], r["beta"])
+                                for r in rows}),
+               "phase_s": time.perf_counter() - t14}
+    print(f"phase 14: {json.dumps(summary)}", flush=True)
+    check(all(r["algo"] == int(szp.ALGO.INTERP) for r in rows),
+          "phase 14: a field did not take INTERP")
+    check(all(r["tune_is_carried"] for r in rows),
+          "phase 14: a dispatch.tune span's decision differs from the archive's Config")
+    check(summary["bit_equal"] == summary["fields"],
+          f"phase 14: {summary['fields'] - summary['bit_equal']} decoded fields differ from the "
+          f"plain reference's reconstruction")
+    check(summary["bins_equal"] == summary["fields"], "phase 14: bins differ from the reference's")
+    check(summary["order_equal"] == summary["fields"],
+          "phase 14: the stream order differs from the reference's")
+    check(summary["max_err_over_eb"] <= 1.0,
+          f"phase 14: max_err_over_eb {summary['max_err_over_eb']!r} over 1.0")
+    return summary
 
 
 def np_verify(original, decoded) -> dict:
@@ -3250,6 +3348,10 @@ def main() -> int:
     for k in ("huff_scan", "huff_write", "lorenzo_sweep", "biomd_frames", "mdz_frames"):
         check(p13_launches[k] >= 1, f"kernel {k} was not launched in phase 13")
     stamp("phase 13 done")
+
+    # ---- phase 14: the cell cesm2d-fields against the plain reference ---------------------
+    phase14_cesm2d(dev)
+    stamp("phase 14 done")
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),

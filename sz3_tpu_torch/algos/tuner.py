@@ -214,10 +214,13 @@ def tune(conf: Config, data: np.ndarray, device) -> bool:
         with trace.span("tune.sample"):
             blocks = _sampled_blocks(conf, data, device)
         if blocks is not None:
-            sp.set(trials=_run_trials(conf, blocks, conf.num * data.dtype.itemsize))
+            trials, ratio = _run_trials(conf, blocks, conf.num * data.dtype.itemsize)
+            sp.set(trials=trials, edge=blocks.shape[1], blocks=blocks.shape[0], est_ratio=ratio)
         # N >= 2: the reference runs its lorenzo arm for 1D only
         # (SZAlgoInterp.hpp:227-241) -> use_interp is always true here
         conf.cmprAlgo = ALGO.INTERP
+        sp.set(interp_algo=int(conf.interpAlgo), direction=conf.interpDirection,
+               alpha=conf.interpAlpha, beta=conf.interpBeta)
     return True
 
 
@@ -255,9 +258,10 @@ def _sampled_blocks(conf: Config, data: np.ndarray, device):
     return torch.from_numpy(blocks).to(device)
 
 
-def _run_trials(conf: Config, blocks: torch.Tensor, trial_cap: int) -> int:
+def _run_trials(conf: Config, blocks: torch.Tensor, trial_cap: int) -> tuple:
     """The three stages of trials over the sampled blocks, conf rewritten
-    with each stage's winner; returns the number of trials."""
+    with each stage's winner; returns the number of trials and the winning
+    trial's sampled ratio."""
     N = conf.N
     edge = blocks.shape[1]
     conf.interpDirection = 0
@@ -287,4 +291,4 @@ def _run_trials(conf: Config, blocks: torch.Tensor, trial_cap: int) -> int:
             best_interp = ratio
             conf.interpAlpha = a
             conf.interpBeta = b
-    return 2 + 1 + len(pairs)
+    return 2 + 1 + len(pairs), best_interp

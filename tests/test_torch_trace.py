@@ -210,6 +210,25 @@ def test_seal_takes_the_engine_arguments(traced, monkeypatch):
     assert sealed.attrs["symbols"] == 24 ** 3 and 0 < sealed.attrs["payload_bytes"] < len(blob)
 
 
+@pytest.mark.parametrize("shape", [(117, 117), (40, 40, 40)])
+def test_tune_span_carries_the_decision(traced, shape):
+    """dispatch.tune holds the tuner's pick, equal to the Config the archive
+    carries, with the sample's edge and blocks and the winner's ratio."""
+    rng = np.random.default_rng(5)
+    x = np.exp(0.05 * np.cumsum(rng.standard_normal(shape), 0)).astype(np.float32)
+    blob = szp.compress(x, szp.Config(errorBoundMode=szp.EB.REL, relErrorBound=1e-4),
+                        device="cpu")
+    _, carried = szp.decompress(blob, device="cpu")
+    tune, = [s for s in trace.spans() if s.name == "dispatch.tune"]
+    a = tune.attrs
+    assert carried.cmprAlgo == szp.ALGO.INTERP
+    assert (a["interp_algo"], a["direction"], a["alpha"], a["beta"]) == \
+        (int(carried.interpAlgo), carried.interpDirection, carried.interpAlpha,
+         carried.interpBeta)
+    assert a["trials"] == 6 and a["blocks"] > 0 and a["est_ratio"] > 0
+    assert a["edge"] >= 9 and (a["edge"] - 1) & (a["edge"] - 2) == 0   # a power of two, plus 1
+
+
 def test_batch_seals_run_under_their_fields(traced):
     stack = np.stack([_field(16, seed=s) for s in range(4)])
     blobs = serving.compress_batch(stack, szp.Config(absErrorBound=1e-3), device="cpu")
