@@ -27,7 +27,10 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      Inf and subnormal values), with its bytes bound and its dependency
      bound (planes times one empty dependent launch, measured here), and
      on the 512^3 field's own inputs held to its plain versions and timed
-     beside both bounds; the
+     beside both bounds; LORENZO_REG's predictor selection (lorenzo_select)
+     on the 512^3 field's own inputs, its speculative call and its first
+     certifying call, held to select_plain and timed beside each call's
+     bytes bound (the cells of both grids that the samples touch); the
      BIOMD frame recurrence (biomd_frames) in both forms on 64 frames of
      9,999 atoms (sites 3 and 4) with NaN, Inf, subnormal and huge values;
      the MDZ frame recurrence (mdz_frames) in both forms on 64 frames of
@@ -665,6 +668,31 @@ def main() -> int:
         return szp.Config(cmprAlgo=szp.ALGO.LORENZO_REG, absErrorBound=eb)
 
     @contextlib.contextmanager
+    def first_calls(mod, name, n):
+        """Copies of the arguments of the first n calls of mod.name, as
+        {"calls": [args, ...]}; an argument that is one tensor in several
+        places or calls is one copy in all of them."""
+        fn = getattr(mod, name)
+        seen = {"calls": []}
+        copies = {}
+
+        def keep(v):
+            if id(v) not in copies:         # the original kept too, so its id stays its own
+                copies[id(v)] = (v, v.clone())
+            return copies[id(v)][1]
+
+        def inner(*a, **k):
+            if len(seen["calls"]) < n:
+                seen["calls"].append([keep(v) if isinstance(v, torch.Tensor) else v for v in a])
+            return fn(*a, **k)
+
+        setattr(mod, name, inner)
+        try:
+            yield seen
+        finally:
+            setattr(mod, name, fn)
+
+    @contextlib.contextmanager
     def timed(spec, memory=None):
         """Every call of each (module, attribute, stage) in `spec` timed
         between two synchronisations; yields {stage: [seconds per call]}.
@@ -1247,7 +1275,7 @@ def main() -> int:
         fields[512] = nyx_like(512)
         print(f"nyx_like(512): {time.perf_counter() - t:.2f} s", flush=True)
         native[512] = sync_time(lambda: native_compress(fields[512], szp.Config(absErrorBound=EB)))
-    with captured(wfe, "sweep_encode") as enc_in:
+    with captured(wfe, "sweep_encode") as enc_in, first_calls(wfe, "select", 2) as sel_in:
         lr_blob512 = szp.compress(fields[512], lr_conf(), device="cuda")
     with captured(wf, "sweep_decode") as dec_in:
         szp.decompress(lr_blob512, device="cuda")
@@ -1294,6 +1322,64 @@ def main() -> int:
           f"bytes), encode {swe5_bound[0]:.5f} ms by {swe5_bound[1]} ({swe5_bytes} bytes); "
           f"dependency bound {planes5} x {empty_ms * 1e3:.3f} us = {sw5_dep_ms:.4f} ms", flush=True)
     del enc_in, dec_in, rec_e, types_e, orig_e, rec_d, types_d, bins_d, lits_d
+    torch.cuda.empty_cache()
+
+    # LORENZO_REG's predictor selection (lorenzo_select.cu) on the 512^3
+    # field's own inputs: the speculative call (one grid as both arguments)
+    # and the first certifying call (the originals and the reconstruction)
+    def select_bytes(geo, ex, same):
+        """The bytes a selection must move: each cell of either grid that a
+        taken sample reads, once (the speculative call's grids are one), the
+        fits read and the two bytes a block written."""
+        m = ex.min(dim=0).values
+        inside = torch.zeros(geo.padded, dtype=torch.bool, device=dev)
+        pad = inside if same else torch.zeros_like(inside)
+        nb = geo.nb
+        for i in range(bl.BS):
+            for j in range(bl.BS - i):
+                taken = (m - 1 - i == j) & (i < m)
+                for px, py, pz in ((i, i, i), (i, i, j), (i, j, i), (i, j, j)):
+                    for d in range(8):
+                        a, b, c = px - (d >> 2), py - ((d >> 1) & 1), pz - (d & 1)
+                        g = inside if min(a, b, c) >= 0 else pad
+                        g[bl.PAD + a:bl.PAD + a + bl.BS * (nb[0] - 1) + 1:bl.BS,
+                          bl.PAD + b:bl.PAD + b + bl.BS * (nb[1] - 1) + 1:bl.BS,
+                          bl.PAD + c:bl.PAD + c + bl.BS * (nb[2] - 1) + 1:bl.BS] |= taken
+        cells = int(inside.sum()) + (0 if same else int(pad.sum()))
+        return 4 * cells + 18 * geo.nblk
+
+    sel_err, sel_rows = 0, {}
+    for name, (geo_s, orig_s, tap_s, ex_s, coefs_s, eb_s) in zip(
+            ("speculative", "first certifying"), sel_in["calls"]):
+        same = tap_s is orig_s
+        check(same == (name == "speculative"), f"lorenzo_select 512^3 {name}: the taps are "
+                                               f"{'' if same else 'not '}the originals")
+        before = wfe.select.launches
+        kern = wfe.select(geo_s, orig_s, tap_s, ex_s, coefs_s, eb_s)
+        check(wfe.select.launches == before + 1, f"lorenzo_select 512^3 {name}: "
+                                                 f"{wfe.select.launches - before} launches")
+        plain = wfe.select_plain(geo_s, orig_s, tap_s, ex_s, coefs_s, eb_s)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(kern[0], plain[0]), max_abs_diff(kern[1], plain[1]))
+        check(err == 0 and all(torch.equal(k, p) for k, p in zip(kern, plain)),
+              f"lorenzo_select 512^3 {name}: differs from select_plain (max abs diff {err})")
+        sel_err = max(sel_err, err)
+        ms, plain_ms, runs = paired_ms(
+            lambda: wfe.select(geo_s, orig_s, tap_s, ex_s, coefs_s, eb_s),
+            lambda: wfe.select_plain(geo_s, orig_s, tap_s, ex_s, coefs_s, eb_s))
+        nbytes_s = select_bytes(geo_s, ex_s, same)
+        # 21 float operations a sample (the stencil's 6, two errors' 5 and
+        # the plane's 6, two widenings and two float64 sums), 24 samples a block
+        bnd = bound(nbytes_s, 21 * 24 * geo_s.nblk)
+        sel_rows[name] = (ms, plain_ms, bnd)
+        print(f"lorenzo_select 512^3 {name}: bit-equal to select_plain ({geo_s.nblk} blocks, "
+              f"regression picked by {int(kern[0].sum())}, no selection for "
+              f"{int((~kern[1]).sum())}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+              f"(plain,kernel,kernel,plain = {[round(v, 4) for v in runs]}); bound "
+              f"{bnd[0]:.5f} ms by {bnd[1]} ({nbytes_s} bytes), the kernel at "
+              f"{ms / bnd[0]:.2f} x", flush=True)
+        del kern, plain
+    del sel_in, geo_s, orig_s, tap_s, ex_s, coefs_s
     torch.cuda.empty_cache()
 
     # the BIOMD frame recurrence (biomd_frames.cu) in both forms against its
@@ -1731,7 +1817,7 @@ def main() -> int:
     # ---- phase 5: the LORENZO_REG path ---------------------------------------------
     # compress / decompress with cmprAlgo = LORENZO_REG (default roster L1 +
     # REG, blockSize 6); launches counted over these calls alone
-    lr_counters = dict(counters, lorenzo_sweep=wf.lorenzo_sweep)
+    lr_counters = dict(counters, lorenzo_sweep=wf.lorenzo_sweep, lorenzo_select=wfe.select)
     lr_launches = dict.fromkeys(lr_counters, 0)
 
     def drive_lr(fn):
@@ -1803,9 +1889,11 @@ def main() -> int:
         err = float(np.abs(out_np.astype(np.float64) - data.astype(np.float64)).max())
         check(err <= EB, f"LORENZO_REG {n}^3 max error {err} > {EB}")
         check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] == 1
-              and enc_seen["lorenzo_sweep"] >= 1, f"LORENZO_REG {n}^3 compress launched {enc_seen}")
+              and enc_seen["lorenzo_sweep"] >= 1
+              and enc_seen["lorenzo_select"] == enc_seen["lorenzo_sweep"] + 1,
+              f"LORENZO_REG {n}^3 compress launched {enc_seen}")
         check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] == 1
-              and dec_seen["lorenzo_sweep"] == 1,
+              and dec_seen["lorenzo_sweep"] == 1 and dec_seen["lorenzo_select"] == 0,
               f"LORENZO_REG {n}^3 decompress launched {dec_seen}")
         mb = data.nbytes / 1e6
         print(f"LORENZO_REG {n}^3 ({mb:.0f} MB f32, ratio {data.nbytes / len(blob_cold):.2f}): "
@@ -3383,6 +3471,11 @@ def main() -> int:
             encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms, ms_512=swd5_ms,
             encode_ms_512=swe5_ms, bound_ms_512=swd5_bound[0],
             encode_bound_ms_512=swe5_bound[0], dependency_bound_ms_512=sw5_dep_ms),
+        row("lorenzo_select", "lorenzo_select.cu", "sz3_tpu/ops/blockwise_wavefront_encode.py:152",
+            sel_err, sel_rows["first certifying"][0], sel_rows["first certifying"][1],
+            sel_rows["first certifying"][2], None, speculative_ms=sel_rows["speculative"][0],
+            speculative_plain_ms=sel_rows["speculative"][1],
+            speculative_bound_ms=sel_rows["speculative"][2][0]),
         row("biomd_frames", "biomd_frames.cu", "sz3_tpu/ops/biomd_device.py:117", frames_err,
             bfr_ms, bfr_plain_ms, bfr_bound, None,
             also_replaces="sz3_tpu/ops/biomd_device.py:95", encode_ms=bfe_ms,

@@ -166,6 +166,8 @@ def kernels() -> C.CDLL:
         lib.szt_lorenzo_sweep.restype = i32
         lib.szt_lorenzo_sweep.argtypes = [p, p, p, p, i32, i32, i32, C.c_double, C.c_double,
                                           i32, i32, p, i64, p]
+        lib.szt_lorenzo_select.restype = i32
+        lib.szt_lorenzo_select.argtypes = [p, p, p, p, p, i32, i32, i32, C.c_float, p]
         lib.szt_biomd_frames.restype = i32
         lib.szt_biomd_frames.argtypes = [p, p, p, p, i64, i32, i32, i32, C.c_double, C.c_double,
                                          i32, i32, p]

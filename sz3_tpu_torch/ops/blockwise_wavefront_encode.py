@@ -14,7 +14,8 @@ three phases:
      quantize form (``sweep_encode``).
 
 The selection is speculated first with the original values standing in for
-the reconstruction (``select`` with the original grid as its taps), the
+the reconstruction (``select`` with the original grid as its taps; on the
+card one launch of csrc/lorenzo_select.cu, on the CPU ``select_plain``), the
 chain runs on the host engine over the speculated commit pattern, the
 regression cells are quantized against their plane predictions, the sweep
 quantizes the Lorenzo cells, and the selection is then recomputed from the
@@ -53,6 +54,7 @@ from .blockwise_layout import (BS, PAD, T_KEEP, T_L1, Geometry, _noise, blocked,
 from .blockwise_wavefront import (cell_index, cell_types, check_sweep, lorenzo_sweep,
                                   padded_grid, reg_cells, sweep_planes)
 from .quantize import quantize
+from ..build import kernels
 from ..utils import trace
 
 E = BS ** 3
@@ -89,10 +91,47 @@ def fits(blocks_t: torch.Tensor, inside_t: torch.Tensor, ex: torch.Tensor) -> to
     return torch.stack(coefs + [cn])
 
 
+def select_route(t: torch.Tensor) -> str:
+    """The route `select` takes for tensors on t's device: "plain" on the
+    CPU, "kernel" on a CUDA card."""
+    return "plain" if t.device.type == "cpu" else "kernel"
+
+
 def select(geo: Geometry, orig_p: torch.Tensor, tap_p: torch.Tensor, ex: torch.Tensor,
            coefs: torch.Tensor, eb: float):
     """Sampled-error selection for the {L1, REG} roster, over every block at
-    once (_jit_select in the JAX package). orig_p and tap_p: padded
+    once (_jit_select in the JAX package): see select_plain for the
+    arguments and the result. CPU tensors take select_plain; CUDA tensors
+    one launch of csrc/lorenzo_select.cu, bit-equal to it, which takes each
+    block's extents from `geo` (`ex` is extents(geo) on every caller).
+    ``select.launches`` counts the launches."""
+    if select_route(orig_p) == "plain":
+        return select_plain(geo, orig_p, tap_p, ex, coefs, eb)
+    for t, dt, shape in ((orig_p, torch.float32, geo.padded), (tap_p, torch.float32, geo.padded),
+                         (coefs, torch.float32, (4, *geo.nb))):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.device != orig_p.device:
+            raise ValueError(f"select argument of {t.dtype} {tuple(t.shape)} on {t.device}: "
+                             f"want a contiguous {dt} {shape} on {orig_p.device}")
+    is_reg = torch.empty(geo.nb, dtype=torch.bool, device=orig_p.device)
+    ok = torch.empty(geo.nb, dtype=torch.bool, device=orig_p.device)
+    stream = torch.cuda.current_stream(orig_p.device).cuda_stream
+    rc = kernels().szt_lorenzo_select(orig_p.data_ptr(), tap_p.data_ptr(), coefs.data_ptr(),
+                                      is_reg.data_ptr(), ok.data_ptr(), *geo.dims,
+                                      float(np.float32(_noise(1, 3, eb))), stream)
+    if rc != 0:
+        raise RuntimeError(f"szt_lorenzo_select: CUDA error {rc}")
+    _SELECT.launches += 1
+    return is_reg, ok
+
+
+select.launches = 0
+_SELECT = select        # the counter's owner, also while a caller wraps the module's name
+
+
+def select_plain(geo: Geometry, orig_p: torch.Tensor, tap_p: torch.Tensor, ex: torch.Tensor,
+                 coefs: torch.Tensor, eb: float):
+    """Plain version of :func:`select`, on any device. orig_p and tap_p: padded
     (NX+2, NY+2, NZ+2) grids, the original values and the taps (the original
     values to speculate, the reconstruction to certify); ex: (3, nb0, nb1,
     nb2) extents; coefs: (4, nb0, nb1, nb2) raw fits. A tap inside the block
@@ -251,7 +290,8 @@ def _encode(geo: Geometry, x: torch.Tensor, eb: float, radius: int, use_l1: bool
         is_reg = reg_valid(geo, dev) if use_reg else torch.zeros(geo.nb, dtype=torch.bool,
                                                                  device=dev)
     else:
-        with trace.span("lorenzo.select", phase="speculate", pass_no=0):
+        with trace.span("lorenzo.select", phase="speculate", pass_no=0,
+                        route=select_route(orig_p)):
             is_reg, ok = select(geo, orig_p, orig_p, ex, raw_g, eb)
 
     # the sweep's reconstruction, made again in place by every pass
@@ -276,7 +316,8 @@ def _encode(geo: Geometry, x: torch.Tensor, eb: float, radius: int, use_l1: bool
         if single:
             firsts.append(-1)
             break
-        with trace.span("lorenzo.select", phase="certify", pass_no=passes):
+        with trace.span("lorenzo.select", phase="certify", pass_no=passes,
+                        route=select_route(orig_p)):
             is_reg_true, ok = select(geo, orig_p, rec, ex, raw_g, eb)
             first = _first_difference(is_reg_true.reshape(-1).cpu().numpy(), is_reg_h)
         firsts.append(first)

@@ -29,6 +29,7 @@ from sz3_tpu_torch.ops import blockwise_wavefront as wf
 from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
 from sz3_tpu_torch.ops import entropy_device as ted
 from sz3_tpu_torch.ops import stream_order
+from sz3_tpu_torch.utils import trace
 
 from conftest import GOLDEN
 
@@ -328,6 +329,41 @@ def test_fits_and_select_match_jax(shape):
     want = np.asarray(jwfe._jit_select(shape, 1e-3)(
         orig_p.numpy(), tap_p.numpy(), ex.numpy(), ex.min(dim=0).values.numpy(), coefs.numpy()))
     assert np.array_equal(is_reg.numpy(), want) and bool(ok.all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_select_takes_the_plain_route_on_the_cpu(shape):
+    """On CPU tensors select is select_plain, with no launch counted, and
+    every lorenzo.select span of an encode names the plain route."""
+    geo = bl.geometry(shape)
+    x = _field(shape, seed=_seed("route", shape))
+    g = torch.zeros(geo.grid)
+    g[:shape[0], :shape[1], :shape[2]] = torch.from_numpy(x)
+    ex = bl.extents(geo, "cpu")
+    raw = wfe.fits(bl.to_blocks(g, geo).t().contiguous(),
+                   bl.to_blocks(bl.valid_cells(geo, "cpu"), geo).t().contiguous(), ex.reshape(3, -1))
+    orig_p = wf.padded_grid(geo, g)
+    tap_p = wf.padded_grid(geo, g + torch.from_numpy(np.random.default_rng(2).uniform(
+        -2e-3, 2e-3, geo.grid).astype(np.float32)))
+    coefs = raw.reshape(4, *geo.nb)
+    assert wfe.select_route(orig_p) == "plain"
+    before = wfe.select.launches
+    got = wfe.select(geo, orig_p, tap_p, ex, coefs, 1e-3)
+    want = wfe.select_plain(geo, orig_p, tap_p, ex, coefs, 1e-3)
+    assert wfe.select.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    stats = {}
+    trace.spans()
+    trace.enable()
+    try:
+        wfe.encode_blocks_wavefront(torch.from_numpy(x), 1e-3, RADIUS, True, False, True, stats)
+    finally:
+        trace.disable()
+        spans = trace.spans()
+    routes = [s.attrs["route"] for s in spans if s.name == "lorenzo.select"]
+    assert routes == ["plain"] * (stats["passes"] + 1)
+    assert wfe.select.launches == before
 
 
 @pytest.mark.parametrize("roster", DECODE_ROSTERS, ids=DECODE_ROSTERS.keys())

@@ -434,6 +434,94 @@ def test_lorenzo_reg_archives_on_the_card(dev, roster, shape):
     assert out.cpu().numpy().tobytes() == ref.tobytes()
 
 
+# ---- LORENZO_REG: the predictor selection ---------------------------------------------
+
+SELECT_SHAPES = [(1, 1, 1), (6, 6, 6), (12, 18, 6), (20, 19, 17), (37, 29, 45), (13, 12, 12)]
+
+
+def _select_case(shape, eb, taps, seed):
+    """select's arguments on the CPU: the padded originals, the taps (the
+    same tensor, or the originals moved by up to 2 eb), extents and fits.
+    At 13 x 12 x 12, +Inf at the base of the extent-1 block (2, 0, 0), whose
+    invalid regression then wins (no selection), and a NaN in block (0, 1, 1)."""
+    from sz3_tpu_torch.ops import blockwise_layout as bl
+    from sz3_tpu_torch.ops import blockwise_wavefront as twf
+    from sz3_tpu_torch.ops import blockwise_wavefront_encode as twfe
+
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal(shape).astype(np.float32)
+    x = (np.cumsum(f, axis=0) * 0.1 + np.cumsum(f, axis=-1) * 0.05).astype(np.float32)
+    if shape == (13, 12, 12):
+        x[12, 0, 0] = np.inf
+        x[3, 7, 8] = np.nan
+    geo = bl.geometry(shape)
+    g = torch.zeros(geo.grid)
+    g[:shape[0], :shape[1], :shape[2]] = torch.from_numpy(x)
+    ex = bl.extents(geo, "cpu")
+    raw = twfe.fits(bl.to_blocks(g, geo).t().contiguous(),
+                    bl.to_blocks(bl.valid_cells(geo, "cpu"), geo).t().contiguous(),
+                    ex.reshape(3, -1))
+    orig_p = twf.padded_grid(geo, g)
+    tap_p = orig_p if taps == "originals" else twf.padded_grid(geo, g + torch.from_numpy(
+        rng.uniform(-2 * eb, 2 * eb, geo.grid).astype(np.float32)))
+    return geo, orig_p, tap_p, ex, raw.reshape(4, *geo.nb)
+
+
+@pytest.mark.parametrize("taps", ["originals", "perturbed"])
+@pytest.mark.parametrize("eb", [1e-3, 1e-1])
+@pytest.mark.parametrize("shape", SELECT_SHAPES)
+def test_lorenzo_select_matches_plain(dev, shape, eb, taps):
+    """The kernel's is_reg and ok equal select_plain's bit for bit, on the
+    CPU and on the card, tail blocks, extents of 1 and non-finite data among
+    them; the speculative call passes one tensor as both grids. One launch
+    counted a call."""
+    from sz3_tpu_torch.ops import blockwise_wavefront_encode as twfe
+
+    geo, orig_p, tap_p, ex, coefs = _select_case(shape, eb, taps, sum(shape))
+    want = twfe.select_plain(geo, orig_p, tap_p, ex, coefs, eb)
+    o = orig_p.to(dev)
+    t = o if tap_p is orig_p else tap_p.to(dev)
+    ex_d, coefs_d = ex.to(dev), coefs.to(dev)
+    before = twfe.select.launches
+    got = twfe.select(geo, o, t, ex_d, coefs_d, eb)
+    assert twfe.select.launches == before + 1
+    on_card = twfe.select_plain(geo, o, t, ex_d, coefs_d, eb)
+    for g, w, c in zip(got, want, on_card):
+        assert g.dtype == torch.bool and g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w) and torch.equal(c.cpu(), w)
+    if shape == (13, 12, 12):
+        assert not bool(want[1].all())
+
+
+def test_lorenzo_select_archive_on_the_card(dev):
+    """A {L1, REG} compress of a 37 x 29 x 45 field on the card gives the
+    host engine's archive; every lorenzo.select span takes the kernel route
+    and one launch."""
+    from sz3_tpu_torch import runtime
+    from sz3_tpu_torch.api import archive_conf
+    from sz3_tpu_torch.ops import blockwise_wavefront_encode as twfe
+    from sz3_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(37)
+    f = rng.standard_normal((37, 29, 45)).astype(np.float32)
+    x = (np.cumsum(f, axis=0) * 0.1 + np.cumsum(f, axis=-1) * 0.05).astype(np.float32)
+    conf = Config(cmprAlgo=ALGO.LORENZO_REG, absErrorBound=1e-2)
+    c, cap = archive_conf(x, conf)
+    want = szp.pack_archive(c, runtime.compress_payload(c, x, cap))
+    before = twfe.select.launches
+    trace.spans()
+    trace.enable()
+    try:
+        blob = szp.compress(x, conf, device=dev)
+    finally:
+        trace.disable()
+        spans = trace.spans()
+    routes = [s.attrs["route"] for s in spans if s.name == "lorenzo.select"]
+    assert blob == want
+    assert len(routes) >= 2 and set(routes) == {"kernel"}
+    assert twfe.select.launches == before + len(routes)
+
+
 # ---- BIOMD: the frame recurrence ------------------------------------------------------
 
 def _frames_case(frames, atoms, site, seed):

@@ -184,9 +184,9 @@ def test_lorenzo_passes_are_the_stats_passes(traced, monkeypatch):
     assert count == {"lorenzo.chain": stats["passes"], "lorenzo.preplace": stats["passes"],
                      "lorenzo.sweep": stats["passes"], "lorenzo.select": stats["passes"] + 1}
     selects = [s.attrs for s in got if s.name == "lorenzo.select"]
-    assert selects[0] == {"phase": "speculate", "pass_no": 0}
+    assert selects[0] == {"phase": "speculate", "pass_no": 0, "route": "plain"}
     assert [a["pass_no"] for a in selects[1:]] == list(range(1, stats["passes"] + 1))
-    assert all(a["phase"] == "certify" for a in selects[1:])
+    assert all(a["phase"] == "certify" and a["route"] == "plain" for a in selects[1:])
 
     trace.spans()                       # through the public call, the same count
     blob = szp.compress(x.numpy(), szp.Config(absErrorBound=1e-1,
