@@ -505,6 +505,7 @@ def main() -> int:
                                                grid_to_pass_slices, initial_literal)
     from sz3_tpu_torch.parallel import chunked
     from sz3_tpu_torch.stats import cal_abs_error_bound
+    from sz3_tpu_torch.utils.copies import to_device, to_host
 
     dev = torch.device("cuda")
 
@@ -527,6 +528,12 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
+
+    def host_bytes(t):
+        """`t` read back through the port's copy to the host, waited for, as bytes."""
+        host = to_host(t)
+        torch.cuda.current_stream().synchronize()
+        return host.numpy().tobytes()
 
     def event_ms(fn, reps=REPS):
         """ms per call between two CUDA events. The calls are queued behind a
@@ -898,7 +905,7 @@ def main() -> int:
         nbits = int(tl[syms + 1].sum())
         words = ed.pack_bits(torch.from_numpy(syms).to(dev), torch.from_numpy(tc).to(dev),
                              torch.from_numpy(tl).to(dev), rad, nbits)
-        return de._stream_bytes(words, nbits), codes, lens, lo, syms
+        return host_bytes(de._big_endian(words, nbits)), codes, lens, lo, syms
 
     def first_pass_args(nwin):
         idx = torch.arange(nwin, dtype=torch.int32, device=dev)
@@ -1537,8 +1544,8 @@ def main() -> int:
     tree, nbits, tc, tl = de._tree_and_tables(hist, radius, deep_n, dev)
     check(int(tl.max()) > 32, "the deep archive's codes do not exceed 32 bits")
     payload = runtime.interp_seal_packed(
-        dconf, tree, de._stream_bytes(ed.pack_bits(ds, tc, tl, radius, nbits), nbits), nbits,
-        deep_n, edge_rng.standard_normal(anchors.numel()).astype(np.float32), 1 << 40)
+        dconf, tree, host_bytes(de._big_endian(ed.pack_bits(ds, tc, tl, radius, nbits), nbits)),
+        nbits, deep_n, edge_rng.standard_normal(anchors.numel()).astype(np.float32), 1 << 40)
     blob = szp.pack_archive(dconf, payload)
     out, _ = szp.decompress(blob, device="cuda")
     check(out.cpu().numpy().tobytes() == native_decompress(blob).tobytes(),
@@ -1720,9 +1727,9 @@ def main() -> int:
         (tree, nbits, tc, tl), tree_s = sync_time(
             lambda: de._tree_and_tables(hist, rad, stream.numel(), dev))
         words, k2_s = sync_time(lambda: ed.pack_bits(stream, tc, tl, rad, nbits))
-        (bits, unpred), d2h_s = sync_time(lambda: (
-            de._stream_bytes(words, nbits),
-            stream_order.literal_values(x, perm, slots).cpu().numpy()))
+        (unpred, bits), d2h_s = sync_time(lambda: (   # host_bytes waits for both copies
+            to_host(stream_order.literal_values(x, perm, slots)).numpy(),
+            host_bytes(de._big_endian(words, nbits))))
         payload, seal_s = sync_time(lambda: runtime.interp_seal_packed(
             c, tree, bits, nbits, stream.numel(), unpred, 1 << 40))
         _, payload_native = szp.open_archive(blob_native)
@@ -1747,7 +1754,7 @@ def main() -> int:
             lambda: runtime.open_packed(dc, dpayload, np.float32))
         (stream_t, values), up2_s = sync_time(lambda: (
             dec.upload_bytes(bits, dev, dec.PAD_BYTES),
-            dec.upload_bytes(unpred.data, dev)[:unpred.nbytes].view(torch.float32)))
+            to_device(unpred, dev)))
         tabs, tables_s = sync_time(lambda: dec.build_decode_tables(codes, lens, offset, dev))
         state, redo, scan_s, check_s = scan_to_end(stream_t, len(bits) * 8, tabs)
         dense, write_s = sync_time(lambda: dec.write_windows(
@@ -1835,7 +1842,7 @@ def main() -> int:
         (wfe, "reg_preplace_encode", "REG pre-placement"), (wfe, "sweep_encode", "sweep"),
         (stream_order, "to_stream", "stream gather"), (ed, "hist_and_literals", "K1"),
         (de, "_tree_and_tables", "host tree"), (ed, "pack_bits", "K2+K3"),
-        (de, "_stream_bytes", "D2H stream"), (stream_order, "literal_values", "literal gather"),
+        (stream_order, "literal_values", "literal gather"), (de, "to_host", "D2H"),
         (runtime, "blockwise_seal_packed", "host seal")]
     lr_decode_stages = [
         (runtime, "blockwise_open_packed", "host zstd open"),
@@ -1985,7 +1992,7 @@ def main() -> int:
 
     nopred_enc_stages = [(de, "nopred_bins", "quantize"), (ed, "hist_and_literals", "K1"),
                          (de, "_tree_and_tables", "host tree"), (ed, "pack_bits", "K2+K3"),
-                         (de, "_stream_bytes", "D2H stream"),
+                         (de, "to_host", "D2H"),
                          (runtime, "nopred_seal_packed", "host seal"),
                          (runtime, "zstd_compress", "zstd of the ratio rule")]
     nopred_dec_stages = [(runtime, "open_packed", "host zstd open"),
@@ -2119,7 +2126,7 @@ def main() -> int:
                                                                          algo=algo)
         check(const_sym < 0 and count == s.numel(), f"{label}: not a Huffman stream of "
                                                     f"{s.numel()} symbols")
-        check(de._stream_bytes(words, nbits) == bits,
+        check(host_bytes(de._big_endian(words, nbits)) == bits,
               f"{label}: the packed words are not the payload's Huffman stream")
         del words, tc, tl
         e4a, ewa = hold_decode(f"{label} stream", bits, codes, lens, lo, chained=False)

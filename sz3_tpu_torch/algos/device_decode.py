@@ -7,8 +7,9 @@ INTERP (``decode_payload_device``):
 
   host:   zstd + payload framing, opened without the Huffman bit-walk
           (runtime.open_packed -> raw bitstream, exported code table, literals)
-  device: speculative window decode of the Huffman stream to the dense
-          stream-order bins (K4 + K5, ops/entropy_decode)
+  device: the head every Huffman route shares (:func:`huffman_head`): the
+          speculative window decode of the stream to the dense stream-order
+          bins (K4 + K5, ops/entropy_decode), the literals uploaded
   device: the literals to the grid points of the stream's zero bins, in
           stream order (the k-th zero bin takes the k-th literal,
           LinearQuantizer.hpp:74-86), and the bins to grid order, both
@@ -34,10 +35,11 @@ from ..config import Config
 from ..ops import biomd_device as bd
 from ..ops import stream_order
 from ..ops import xtc_device as xtc
-from ..ops.entropy_decode import decode_stream, upload_bytes
+from ..ops.entropy_decode import decode_stream
 from ..ops.interp_fast import decode_grid_fast, grid_to_pass_slices, initial_literal
 from ..ops.quantize import by_slices, recover
 from ..utils import trace
+from ..utils.copies import to_device
 from .device_encode import perm_for, plan_for
 
 
@@ -54,30 +56,37 @@ def dense_bins(bits: bytes, count: int, offset: int, codes: np.ndarray, lens: np
     return dense
 
 
+def huffman_head(stream: tuple, unpred: np.ndarray, num: int, dtype, device: torch.device,
+                 stats: Optional[dict] = None, points: str = "grid points"):
+    """The head of the three Huffman decodes: the opened stream (bits,
+    count, offset, codes, lens, const_sym) and literals -> (dense
+    stream-order bins, the zero bins' slots, the literals as `dtype`), all
+    on `device`. Raises ValueError where the archived symbol count is not
+    `num`, or the literal count not the count of zero bins."""
+    bits, count, offset, codes, lens, const_sym = stream
+    if count != num:
+        raise ValueError(f"archived symbol count {count} != {num} {points}")
+    dense = dense_bins(bits, count, offset, codes, lens, const_sym, device, stats)
+    slots = torch.nonzero(dense == 0).reshape(-1)
+    if slots.numel() != unpred.size:
+        raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
+    return dense, slots, to_device(unpred.astype(dtype, copy=False), device)
+
+
 def decode_payload_device(conf: Config, payload: bytes, dtype, device: torch.device,
                           stats: Optional[dict] = None) -> torch.Tensor:
     """INTERP payload -> the float field on `device`, shaped conf.dims, with
     the entropy decode on that device. conf.interpAnchorStride must be
     resolved; conf picks up the payload header's parameters. Raises
     ValueError on a payload whose counts disagree."""
-    dtype = np.dtype(dtype)
     # The payload header is authoritative over the Config tail (the interp
     # compressor re-tunes and may store another interpolator, with the same
     # stream count): open first, plan after.
     with trace.span("open", payload_bytes=len(payload)):
-        bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
-            conf, payload, dtype, algo=2)
+        *stream, unpred = runtime.open_packed(conf, payload, dtype, algo=2)
     num = int(np.prod(conf.dims))
-    if count != num:
-        raise ValueError(f"archived symbol count {count} != {num} grid points")
-    dense = dense_bins(bits, count, offset, codes, lens, const_sym, device, stats)
     with trace.span("interp.decode", points=num):
-        slots = torch.nonzero(dense == 0).reshape(-1)
-        if slots.numel() != unpred.size:
-            raise ValueError(f"literal stream length {unpred.size} != zero bins "
-                             f"{slots.numel()}")
-        values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(
-            torch.float32 if dtype == np.float32 else torch.float64)
+        dense, slots, values = huffman_head(stream, unpred, num, dtype, device, stats)
         perm = perm_for(conf, device)
         plan = plan_for(conf)
         literal = stream_order.literal_grid(values, perm, slots, num).reshape(plan.dims)
@@ -110,20 +119,13 @@ def decode_payload_device_blockwise(conf: Config, payload: bytes,
 
     roster = wf.roster_of(conf.lorenzo, conf.lorenzo2, conf.regression)
     with trace.span("open", payload_bytes=len(payload)):
-        (bits, count, offset, codes, lens, const_sym, sel, regb, qlu, qiu,
-         unpred) = runtime.blockwise_open_packed(conf, payload)
+        opened = runtime.blockwise_open_packed(conf, payload)
+    sel, regb, qlu, qiu, unpred = opened[6:]
     geo = bl.geometry(conf.dims)
-    num = int(np.prod(geo.dims))
-    if count != num:
-        raise ValueError(f"archived symbol count {count} != {num} grid points")
     eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
-    dense = dense_bins(bits, count, offset, codes, lens, const_sym, device)
     with trace.span("lorenzo.decode", blocks=geo.nblk):
-        slots = torch.nonzero(dense == 0).reshape(-1)
-        if slots.numel() != unpred.size:
-            raise ValueError(f"literal stream length {unpred.size} != zero bins "
-                             f"{slots.numel()}")
-        values = upload_bytes(unpred.data, device)[:unpred.nbytes].view(torch.float32)
+        dense, slots, values = huffman_head(opened[:6], unpred, int(np.prod(geo.dims)),
+                                            np.float32, device)
         perm = bl.perm_for(geo.dims, device)
         lits = stream_order.literal_grid(values, perm, slots, geo.ncells).reshape(geo.grid)
         bins = stream_order.from_stream(dense, perm, geo.ncells).reshape(geo.grid)
@@ -148,23 +150,15 @@ def decode_payload_device_nopred(conf: Config, payload: bytes, dtype,
     The stream is element order: every point is recovered against a zero
     prediction, slice by slice, then the k-th zero bin takes the k-th
     literal. Raises ValueError on a payload whose counts disagree."""
-    dtype = np.dtype(dtype)
     with trace.span("open", payload_bytes=len(payload)):
-        bits, count, offset, codes, lens, const_sym, unpred = runtime.open_packed(
-            conf, payload, dtype, algo=3)
+        *stream, unpred = runtime.open_packed(conf, payload, dtype, algo=3)
     num = int(np.prod(conf.dims))
-    if count != num:
-        raise ValueError(f"archived symbol count {count} != {num} points")
-    dense = dense_bins(bits, count, offset, codes, lens, const_sym, device)
-    slots = torch.nonzero(dense == 0).reshape(-1)
-    if slots.numel() != unpred.size:
-        raise ValueError(f"literal stream length {unpred.size} != zero bins {slots.numel()}")
-    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    dense, slots, values = huffman_head(stream, unpred, num, dtype, device, points="points")
     eb, radius = conf.absErrorBound, conf.quantbinCnt // 2
-    zero = torch.zeros((), dtype=tdt, device=device)
+    zero = torch.zeros((), dtype=values.dtype, device=device)
     out = by_slices(lambda b: recover(zero, b, zero, eb, radius),
-                    torch.empty(num, dtype=tdt, device=device), dense)
-    out[slots] = upload_bytes(unpred.data, device)[:unpred.nbytes].view(tdt)
+                    torch.empty(num, dtype=values.dtype, device=device), dense)
+    out[slots] = values
     return out
 
 

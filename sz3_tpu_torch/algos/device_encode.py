@@ -3,16 +3,16 @@
 NOPRED through the device Huffman encode, BIOMD and BIOMDXTC with their
 decomposition on the device and their coders in the host engine.
 
-INTERP (``encode_payload_device``):
-
-  device: predict+quantize passes (ops/interp_fast) -> bins grid -> stream
-          order through the cached permutation (ops/stream_order) ->
-          histogram (K1's count pass, ops/entropy_device), read back once
-  host:   Huffman tree with the reference's tie-breaking (runtime.huff_table),
-          exact total bit count from histogram x code lengths, code tables,
-          while the card places the literal slots (K1's placement pass)
-  device: code lookup + bit packing (K2+K3, ops/entropy_device)
-  host:   payload framing + zstd (runtime.interp_seal_packed)
+A Huffman route's encode is a device half and a host half. The device
+half predicts and quantizes to bins in stream order (INTERP: the passes of
+ops/interp_fast, then the cached permutation of ops/stream_order) and ends
+in :func:`pack`: K1's histogram (ops/entropy_device), read back once; the
+Huffman tree on the host with the reference's tie-breaking
+(runtime.huff_table), the exact bit count and the code tables, while the
+card places the literal slots; K2+K3's bit packing; the stream and the
+literals queued to page-locked memory (utils/copies). The host half,
+:func:`seal_packed`, waits for them, then frames and zstd-compresses the
+payload with the route's engine seal (runtime.*_seal_packed).
 
 The JAX package sends four kinds of input to its host emit/seal path: no
 anchor grid, a literal count above its capacity, bins outside its histogram
@@ -40,6 +40,7 @@ from ..ops import xtc_device as xtc
 from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
 from ..ops.quantize import by_slices, quantize
 from ..utils import trace
+from ..utils.copies import to_host
 from .huffman import build_table
 
 
@@ -111,11 +112,6 @@ def _big_endian(words: torch.Tensor, total_bits: int) -> torch.Tensor:
     return words.view(torch.uint8).reshape(-1, 4).flip(1).reshape(-1)[:(total_bits + 7) // 8]
 
 
-def _stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
-    """The big-endian byte stream of the packed words, on the host."""
-    return _big_endian(words, total_bits).cpu().numpy().tobytes()
-
-
 def _sealed(seal, conf: Config, *args, bit_count: int = 0, symbols: int = 0) -> bytes:
     """``seal(conf, *args)``, a host engine's seal, in the ``seal`` span."""
     with trace.span("seal", bit_count=bit_count, symbols=symbols) as sp:
@@ -124,11 +120,26 @@ def _sealed(seal, conf: Config, *args, bit_count: int = 0, symbols: int = 0) -> 
     return payload
 
 
-def _entropy_encode(bins_stream: torch.Tensor, radius: int, num: int, literals):
+class Packed(NamedTuple):
+    """The device half of a Huffman route's encode (:func:`pack`): what the
+    host half (:func:`seal_packed`) hands the engine's seal."""
+    tree: bytes
+    total_bits: int
+    num: int
+    bits: torch.Tensor            # the big-endian stream, on the host (page-locked from the card)
+    unpred: torch.Tensor          # the literals in stream order, on the host
+    done: Optional[torch.cuda.Event]   # recorded after both copies; None on the CPU
+    seal: str                     # the engine's seal, a name on runtime
+    side: tuple = ()              # host arrays the seal takes before the literals
+
+
+def pack(seal: str, bins_stream: torch.Tensor, radius: int, num: int, literals,
+         side: tuple = ()) -> Packed:
     """K1, the host's tree, then K2+K3 and the literal gather
-    (``literals(slots)``) over the stream-order bins, each in its span:
-    (tree bytes, total bits, the packed words and the literals, both on the
-    bins' device)."""
+    (``literals(slots)``) over the stream-order bins, each in its span, and
+    the big-endian stream and the literals queued to the host behind an
+    event. It waits only for the current stream (K1's histogram, K2+K3's
+    bit count), so work queued on other streams runs on."""
     with trace.span("entropy.hist", symbols=bins_stream.numel()):
         hist, slots = ed.hist_and_literals(bins_stream, radius)   # hist on the host
     with trace.span("entropy.tree") as sp:
@@ -137,35 +148,32 @@ def _entropy_encode(bins_stream: torch.Tensor, radius: int, num: int, literals):
     with trace.span("entropy.pack", total_bits=total_bits):
         words = ed.pack_bits(bins_stream, tc, tl, radius, total_bits)
         unpred = literals(slots)
-    return tree, total_bits, words, unpred
+    cuda = bins_stream.is_cuda
+    with trace.span("copy.d2h", pinned=cuda) as sp:
+        bits, unpred = to_host(_big_endian(words, total_bits)), to_host(unpred)
+        sp.set(bytes=bits.nbytes + unpred.nbytes)
+    done = None
+    if cuda:
+        done = torch.cuda.Event()
+        done.record()
+    return Packed(tree, total_bits, num, bits, unpred, done, seal, side)
 
 
-class Packed(NamedTuple):
-    """The device half of an INTERP encode (:func:`pack_device`): what the
-    host half (:func:`seal_packed`) seals into the payload."""
-    tree: bytes
-    total_bits: int
-    num: int
-    bits: torch.Tensor            # the big-endian stream, on the host (page-locked from the card)
-    unpred: torch.Tensor          # the literals in stream order, on the host
-    done: Optional[torch.cuda.Event]   # recorded after both copies; None on the CPU
-
-
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """`t` on the host: from the card a page-locked copy, queued on the
-    current stream; a CPU tensor as it is."""
-    if t.device.type == "cpu":
-        return t
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
+def seal_packed(conf: Config, packed: Packed, cap: int) -> bytes:
+    """The host half: waits for the copies of ``packed``, then frames and
+    zstd-compresses the payload with the engine's seal it names."""
+    with trace.span("copy.wait"):
+        if packed.done is not None:
+            packed.done.synchronize()
+        bits = packed.bits.numpy().tobytes()
+    return _sealed(getattr(runtime, packed.seal), conf, packed.tree, bits, packed.total_bits,
+                   packed.num, *packed.side, packed.unpred.numpy(), cap,
+                   bit_count=packed.total_bits, symbols=packed.num)
 
 
 def pack_device(conf: Config, x: torch.Tensor) -> Packed:
     """The device half of ``encode_payload_device``, on the current stream:
-    passes, stream gather, K1, the host's tree, K2+K3, and the packed words
-    and literals queued to the host. It waits only for this stream (K1's
-    histogram, K2+K3's bit count), so work queued on other streams runs on."""
+    passes, stream gather, then :func:`pack`."""
     plan = plan_for(conf)
     num = int(np.prod(conf.dims))
     with trace.span("interp.passes", points=num):
@@ -174,28 +182,8 @@ def pack_device(conf: Config, x: torch.Tensor) -> Packed:
     with trace.span("interp.stream_order"):
         perm = perm_for(conf, x.device)
         bins_stream = stream_order.to_stream(grid, perm)
-    tree, total_bits, words, unpred = _entropy_encode(
-        bins_stream, plan.radius, num, lambda slots: stream_order.literal_values(x, perm, slots))
-    with trace.span("copy.d2h", pinned=x.is_cuda) as sp:
-        bits, unpred = _to_host(_big_endian(words, total_bits)), _to_host(unpred)
-        sp.set(bytes=bits.nbytes + unpred.nbytes)
-    done = None
-    if x.device.type == "cuda":
-        done = torch.cuda.Event()
-        done.record()
-    return Packed(tree, total_bits, num, bits, unpred, done)
-
-
-def seal_packed(conf: Config, packed: Packed, cap: int) -> bytes:
-    """The host half: waits for the copies of ``packed``, then frames and
-    zstd-compresses the payload (runtime.interp_seal_packed)."""
-    with trace.span("copy.wait"):
-        if packed.done is not None:
-            packed.done.synchronize()
-        bits = packed.bits.numpy().tobytes()
-    return _sealed(runtime.interp_seal_packed, conf, packed.tree, bits, packed.total_bits,
-                   packed.num, packed.unpred.numpy(), cap, bit_count=packed.total_bits,
-                   symbols=packed.num)
+    return pack("interp_seal_packed", bins_stream, plan.radius, num,
+                lambda slots: stream_order.literal_values(x, perm, slots))
 
 
 def encode_payload_device(conf: Config, x: torch.Tensor, cap: int) -> bytes:
@@ -217,8 +205,7 @@ def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
               (ops/blockwise_wavefront_encode), the host engine replaying the
               coefficient chain once a pass
       device: the bins grid to the block-major stream through the cached
-              permutation (ops/blockwise_layout), K1, then K2+K3 after the
-              host's tree, as in encode_payload_device
+              permutation (ops/blockwise_layout), then :func:`pack`
       host:   payload framing + zstd (runtime.blockwise_seal_packed)"""
     from ..ops import blockwise_layout as bl
     from ..ops.blockwise_wavefront_encode import encode_blocks_wavefront
@@ -226,18 +213,12 @@ def encode_payload_device_blockwise(conf: Config, x: torch.Tensor, cap: int,
     radius = conf.quantbinCnt // 2
     bins_grid, g, sel, regb, qlu, qiu = encode_blocks_wavefront(
         x, conf.absErrorBound, radius, conf.lorenzo, conf.lorenzo2, conf.regression, stats)
-    num = x.numel()
     with trace.span("lorenzo.stream_order"):
         perm = bl.perm_for(conf.dims, x.device)
         bins_stream = stream_order.to_stream(bins_grid, perm)
-    tree, total_bits, words, unpred = _entropy_encode(
-        bins_stream, radius, num, lambda slots: stream_order.literal_values(g, perm, slots))
-    with trace.span("copy.d2h", pinned=False) as sp:
-        bits_bytes = _stream_bytes(words, total_bits)
-        unpred = unpred.cpu().numpy()
-        sp.set(bytes=len(bits_bytes) + unpred.nbytes)
-    return _sealed(runtime.blockwise_seal_packed, conf, tree, bits_bytes, total_bits, num, sel,
-                   regb, qlu, qiu, unpred, cap, bit_count=total_bits, symbols=num)
+    return seal_packed(conf, pack("blockwise_seal_packed", bins_stream, radius, x.numel(),
+                                  lambda slots: stream_order.literal_values(g, perm, slots),
+                                  (sel, regb, qlu, qiu)), cap)
 
 
 def nopred_bins(flat: torch.Tensor, eb: float, radius: int) -> torch.Tensor:
@@ -256,19 +237,14 @@ def encode_payload_device_nopred(conf: Config, x: torch.Tensor, cap: int) -> byt
     sz3_tpu/algos/device_encode.py; reference SZAlgoNopred.hpp:13-36).
 
       device: quantize against a zero prediction (nopred_bins); the stream
-              is the flat bins in element order, so no permutation; K1, then K2+K3
-              after the host's tree, as in encode_payload_device
+              is the flat bins in element order, so no permutation; then
+              :func:`pack`
       host:   payload framing + zstd (runtime.nopred_seal_packed)"""
     radius = conf.quantbinCnt // 2
     flat = x.reshape(-1)
-    num = flat.numel()
     bins = nopred_bins(flat, conf.absErrorBound, radius)
-    tree, total_bits, words, unpred = _entropy_encode(
-        bins, radius, num, lambda slots: flat.index_select(0, slots))
-    bits_bytes = _stream_bytes(words, total_bits)
-    unpred = unpred.cpu().numpy()
-    return _sealed(runtime.nopred_seal_packed, conf, tree, bits_bytes, total_bits, num, unpred,
-                   cap, bit_count=total_bits, symbols=num)
+    return seal_packed(conf, pack("nopred_seal_packed", bins, radius, flat.numel(),
+                                  lambda slots: flat.index_select(0, slots)), cap)
 
 
 def encode_payload_device_biomd(conf: Config, x: torch.Tensor, cap: int, site: int,

@@ -50,6 +50,7 @@ from ..ops import biomd_device as bd
 from ..parallel import chunked
 from ..stats import cal_abs_error_bound
 from ..utils import trace
+from ..utils.copies import to_device
 from . import device_decode, device_encode, tuner
 
 _FLOATS = (np.float32, np.float64)
@@ -121,8 +122,7 @@ def _device_encode_payload(conf: Config, data: np.ndarray, cap: int, device: tor
                            route: tuple) -> bytes:
     # conf.dims drops size-1 axes (reference setDims); the plan, the stream
     # order and the archive all use that shape
-    with trace.span("copy.h2d", bytes=data.nbytes, pinned=False):
-        x = torch.from_numpy(np.ascontiguousarray(data).reshape(conf.dims)).to(device)
+    x = to_device(data.reshape(conf.dims), device)
     algo = conf.cmprAlgo
     if algo == ALGO.LORENZO_REG:
         return device_encode.encode_payload_device_blockwise(conf, x, cap)

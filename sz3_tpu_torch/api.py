@@ -20,6 +20,8 @@ from . import runtime
 from .algos.torch_backend import compress_payload_torch, decompress_payload_torch
 from .config import Config, DataType, SZ3_MAGIC_NUMBER, version_int, version_str
 from .utils import trace
+# on_device stays public here, for entry, preprocess and the examples
+from .utils.copies import device_of as _device, on_device
 
 _HDR = struct.Struct("<IIQ")
 _DATA_VER = version_int((3, 3, 2))
@@ -52,25 +54,6 @@ def _conf_for(data: np.ndarray, conf: Optional[Config], set_datatype: bool) -> C
     if set_datatype:
         c.dataType = runtime.np_dtype_id(data)
     return c
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested, but torch.cuda.is_available() is False")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def on_device(x, device=None) -> torch.Tensor:
-    """`x` (a tensor or an array) as a tensor on `device`. device=None keeps
-    a tensor where it is and puts an array on the CUDA card (which raises
-    without one)."""
-    if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(_device(device))
-    return torch.from_numpy(np.ascontiguousarray(x)).to(_device("cuda" if device is None
-                                                                else device))
 
 
 def archive_conf(data: np.ndarray, conf: Optional[Config] = None,

@@ -53,6 +53,7 @@ from .config import ALGO, EB, Config
 from .ops.interp_fast import _consts
 from .stats import cal_abs_error_bound
 from .utils import trace
+from .utils.copies import to_device
 
 DEPTH = 3                  # fields in flight (serving.py:91)
 _BATCH_MODES = (EB.ABS, EB.REL, EB.PSNR, EB.ABS_AND_REL, EB.ABS_OR_REL)
@@ -129,10 +130,7 @@ def _compress_batch_device_entropy(stack: np.ndarray, base: Config, device: torc
                         s.wait_stream(caller)
                         ctx = torch.cuda.stream(s)
                     with ctx:
-                        with trace.span("copy.h2d", bytes=stack[i].nbytes, pinned=False):
-                            x = torch.from_numpy(stack[i]).to(device)
-                        packed = de.pack_device(c, x)
-                        del x
+                        packed = de.pack_device(c, to_device(stack[i], device))
                     futures.append(seals.submit(one, i, c, cap, packed, field))
             return [f.result() for f in futures]
         finally:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .config import Config, EB
+from .utils.copies import on_device
 
 
 def data_range(data: np.ndarray) -> float:
@@ -83,7 +84,6 @@ def moments(original, decoded, device=None) -> dict:
     temporaries stay near 256 MiB whatever the field's size; min and max
     propagate NaN, as numpy's do. Keys: n, min, max, max_abs, max_pw, sse,
     sum_dd, mean_o, mean_d, prod, var_o, var_d (the last three are means)."""
-    from .api import on_device
     from .ops.quantize import SLICE
 
     ori = on_device(original, device).reshape(-1)

@@ -769,6 +769,33 @@ def test_serving_pipeline_on_the_card(dev, monkeypatch, depth, dtype, mode):
         assert torch.equal(out[i], szp.decompress(b, device="cuda")[0])
 
 
+def test_lorenzo_and_nopred_read_back_pinned_behind_an_event(dev, monkeypatch):
+    """LORENZO_REG's and NOPRED's stream and literals come back to
+    page-locked memory, queued behind an event that the host half waits on
+    before it seals, as INTERP's do; the archives equal the engine's."""
+    from sz3_tpu_torch import runtime
+
+    rng = np.random.default_rng(3)
+    x = (np.cumsum(rng.standard_normal((40, 41, 42)), axis=-1) * 0.05).astype(np.float32)
+    x.reshape(-1)[::211] = 1e5
+    copied, waited, sealed = [], [], []
+    to_host, seal_packed, sync = tde.to_host, tde.seal_packed, torch.cuda.Event.synchronize
+    monkeypatch.setattr(tde, "to_host", lambda t: copied.append(to_host(t)) or copied[-1])
+    monkeypatch.setattr(tde, "seal_packed", lambda *a: sealed.append(a[1]) or seal_packed(*a))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda e: waited.append(e) or sync(e))
+    for algo, eb in ((ALGO.LORENZO_REG, 1e-3), (ALGO.NOPRED, 1e-1)):
+        copied.clear(), waited.clear(), sealed.clear()
+        conf = Config(cmprAlgo=algo, absErrorBound=eb)
+        blob = szp.compress(x, conf.copy(), device="cuda")
+        assert szp.open_archive(blob)[0].cmprAlgo == algo
+        packed, = sealed
+        assert [t.is_pinned() for t in copied] == [True, True], algo
+        assert packed.bits is copied[0] and packed.unpred is copied[1]
+        assert isinstance(packed.done, torch.cuda.Event) and waited == [packed.done], algo
+        c, cap = szp.api.archive_conf(x, conf.copy())
+        assert blob == szp.pack_archive(c, runtime.compress_payload(c, x, cap)), algo
+
+
 def _cli_field(tmp_path, shape=(24, 40, 64), seed=9):
     x = (np.cumsum(np.random.default_rng(seed).standard_normal(shape), axis=-1) * 0.1
          ).astype(np.float32)

@@ -18,6 +18,7 @@ from sz3_tpu.algos import device_encode as jde
 from sz3_tpu.ops import entropy_device as jed
 from sz3_tpu_torch.algos import device_encode as tde
 from sz3_tpu_torch.ops import entropy_device as ted
+from sz3_tpu_torch.utils.copies import to_host
 
 RADIUS = 32768
 WLO = RADIUS - ted.W_HALF
@@ -302,7 +303,7 @@ def test_deep_tree_matches_host_engine():
     tree, total, tc, tl = tde._tree_and_tables(hist, RADIUS, b.size, "cpu")
     assert int(tl.max()) == 33
     words = ted.pack_bits(bins, tc, tl, RADIUS, total)
-    bits = tde._stream_bytes(words, total)
+    bits = to_host(tde._big_endian(words, total)).numpy().tobytes()
     want = tree + np.array([b.size, len(bits)], "<u8").tobytes() + bits
     assert blob == want
 

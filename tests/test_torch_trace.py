@@ -32,7 +32,7 @@ INTERP_ENCODE = {"api.compress", "dispatch.bound", "dispatch.tune", "tune.sample
 LORENZO_ENCODE = {"api.compress", "dispatch.bound", "copy.h2d", "lorenzo.encode",
                   "lorenzo.fits", "lorenzo.select", "lorenzo.chain", "lorenzo.preplace",
                   "lorenzo.sweep", "lorenzo.stream_order", "entropy.hist", "entropy.tree",
-                  "entropy.pack", "copy.d2h", "seal", "archive.pack"}
+                  "entropy.pack", "copy.d2h", "copy.wait", "seal", "archive.pack"}
 DECODE = {"api.decompress", "archive.open", "open", "entropy.decode", "copy.h2d"}
 
 
