@@ -502,7 +502,8 @@ def main() -> int:
     from sz3_tpu_torch.ops import mdz_device as md
     from sz3_tpu_torch.ops import stream_order
     from sz3_tpu_torch.ops.interp_fast import (bins_to_grid, decode_grid_fast, encode_grid_fast,
-                                               grid_to_pass_slices, initial_literal)
+                                               encode_grid_plain, grid_to_pass_slices,
+                                               initial_literal)
     from sz3_tpu_torch.parallel import chunked
     from sz3_tpu_torch.stats import cal_abs_error_bound
     from sz3_tpu_torch.utils.copies import to_device, to_host
@@ -1634,18 +1635,23 @@ def main() -> int:
     # counters are zeroed just before them and read just after
     counters = {"hist_literals": ed.hist_and_literals, "pack_bits": ed.pack_bits,
                 "huff_scan": dec.scan_windows, "huff_write": dec.write_windows}
-    launches = dict.fromkeys(counters, 0)
+    # the INTERP encode kernel counts on here alone: the later phases take
+    # their counters from `counters`, and LORENZO_REG's never launches it
+    launches = dict.fromkeys([*counters, "interp_encode"], 0)
 
     def drive(fn):
         """Run one piece of the main path with every launch count set to 0
         just before it and read just after."""
         for w in counters.values():
             w.launches = 0
+        interp_before = encode_grid_fast.launches
         out = sync_time(fn)
         seen = {k: w.launches for k, w in counters.items()}
+        seen["interp_encode"] = encode_grid_fast.launches - interp_before
         for k, v in seen.items():
             launches[k] += v
         return out, seen
+    ie_rows = {}
     for n in SIZES:
         if n not in fields:
             t = time.perf_counter()
@@ -1673,8 +1679,8 @@ def main() -> int:
             lambda: szp.decompress(blob_native, device="cuda"))
         dec_peak = torch.cuda.max_memory_allocated() - held
         torch.cuda.reset_peak_memory_stats()
-        check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] >= 1,
-              f"{n}^3 compress launched {enc_seen}")
+        check(enc_seen["hist_literals"] == 1 and enc_seen["pack_bits"] >= 1
+              and enc_seen["interp_encode"] >= 1, f"{n}^3 compress launched {enc_seen}")
         check(dec_seen["huff_scan"] >= 1 and dec_seen["huff_write"] >= 1,
               f"{n}^3 decompress launched {dec_seen}")
         for label, b in (("cold", blob_cold), ("warm", blob_warm)):
@@ -1720,6 +1726,24 @@ def main() -> int:
         perm = de.perm_for(c, dev)
         (bins_list, b0), pass_s = sync_time(lambda: encode_grid_fast(x, plan)[:2])
         pass_ms = event_ms(lambda: encode_grid_fast(x, plan), reps=3)
+        # the passes' kernel (one launch a pass, in place) against their
+        # plain version on the card: bits, time, and a bound of 28 bytes a
+        # point (the original and the neighbours read, the reconstruction
+        # and the bin written, the working copy, the bins grid's zeros)
+        pbins, pb0, prec = encode_grid_plain(x, plan)
+        rec = encode_grid_fast(x, plan)[2]
+        check(torch.equal(bins_to_grid(bins_list, plan, b0, dev),
+                          bins_to_grid(pbins, plan, pb0, dev))
+              and torch.equal(rec.view(torch.int32), prec.view(torch.int32)),
+              f"{n}^3 INTERP encode kernel differs from its plain version")
+        del pbins, pb0, prec, rec
+        ie_ms, ie_plain_ms, ie_runs = paired_ms(lambda: encode_grid_fast(x, plan),
+                                                lambda: encode_grid_plain(x, plan), plain_reps=1)
+        ie_rows[n] = (ie_ms, ie_plain_ms, bound(28 * x.numel(), 0), len(plan.passes))
+        print(f"  interp_encode at {n}^3 ({len(plan.passes)} passes, one launch each): "
+              f"{ie_ms:.4f} ms a call (working copy and passes), plain {ie_plain_ms:.4f} ms "
+              f"(runs plain, kernel, kernel, plain {[round(v, 4) for v in ie_runs]}), bound "
+              f"{ie_rows[n][2][0]:.4f} ms by {ie_rows[n][2][1]}", flush=True)
         stream, gather_s = sync_time(lambda: stream_order.to_stream(
             bins_to_grid(bins_list, plan, b0, dev), perm))
         rad = c.quantbinCnt // 2
@@ -3478,6 +3502,9 @@ def main() -> int:
             encode_bound_by=swe_bound[1], dependency_bound_ms=sw_dep_ms, ms_512=swd5_ms,
             encode_ms_512=swe5_ms, bound_ms_512=swd5_bound[0],
             encode_bound_ms_512=swe5_bound[0], dependency_bound_ms_512=sw5_dep_ms),
+        row("interp_encode", "interp_encode.cu", "sz3_tpu/ops/interp_fast.py:280", 0.0,
+            ie_rows[512][0], ie_rows[512][1], ie_rows[512][2], None, passes=ie_rows[512][3],
+            ms_256=ie_rows[256][0], plain_ms_256=ie_rows[256][1], bound_ms_256=ie_rows[256][2][0]),
         row("lorenzo_select", "lorenzo_select.cu", "sz3_tpu/ops/blockwise_wavefront_encode.py:152",
             sel_err, sel_rows["first certifying"][0], sel_rows["first certifying"][1],
             sel_rows["first certifying"][2], None, speculative_ms=sel_rows["speculative"][0],

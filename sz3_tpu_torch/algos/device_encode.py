@@ -37,7 +37,7 @@ from ..ops import biomd_device as bd
 from ..ops import entropy_device as ed
 from ..ops import stream_order
 from ..ops import xtc_device as xtc
-from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast
+from ..ops.interp_fast import build_fast_plan, encode_grid_fast, encode_route, pass_launches
 from ..ops.quantize import by_slices, quantize
 from ..utils import trace
 from ..utils.copies import to_host
@@ -176,9 +176,10 @@ def pack_device(conf: Config, x: torch.Tensor) -> Packed:
     passes, stream gather, then :func:`pack`."""
     plan = plan_for(conf)
     num = int(np.prod(conf.dims))
-    with trace.span("interp.passes", points=num):
-        bins_list, b0, _ = encode_grid_fast(x, plan)
-        grid = bins_to_grid(bins_list, plan, b0, x.device)
+    with trace.span("interp.passes", points=num, route=encode_route(x),
+                    launches=pass_launches(plan, x)):
+        grid = torch.zeros(plan.dims, dtype=torch.int32, device=x.device)
+        encode_grid_fast(x, plan, grid=grid)
     with trace.span("interp.stream_order"):
         perm = perm_for(conf, x.device)
         bins_stream = stream_order.to_stream(grid, perm)

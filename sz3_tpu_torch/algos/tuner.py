@@ -33,7 +33,8 @@ import torch
 
 from .. import runtime
 from ..config import ALGO, Config
-from ..ops.interp_fast import bins_to_grid, build_fast_plan, encode_grid_fast, stack_plans
+from ..ops.interp_fast import (build_fast_plan, encode_grid_fast, encode_route, pass_launches,
+                               stack_plans)
 from ..ops.stream_order import cache_device
 from ..stats import cal_abs_error_bound
 from ..utils import trace
@@ -171,21 +172,23 @@ def trial_streams(blocks: torch.Tensor, trials):
     as one batch: a list of (the stream, the literals) a trial, each block's
     in its stream order, block after block (the JAX package's per-block
     perm_emit)."""
-    plans = [_trial_plan(tuple(t.dims), int(t.interpAlgo), t.interpDirection,
-                         t.interpAnchorStride, t.interpAlpha, t.interpBeta, t.absErrorBound,
-                         t.quantbinCnt) for t in trials]
     k = blocks.shape[0]
-    plan = stack_plans(plans)
-    batch = (len(trials), k)
-    bins_list, b0, _ = encode_grid_fast(blocks.expand(batch + blocks.shape[1:]), plan, lead=2)
-    grid = bins_to_grid(bins_list, plan, b0, blocks.device, batch=batch)
-    out = []
-    for i, t in enumerate(trials):
-        perm = _trial_order(tuple(t.dims), int(t.interpAlgo), t.interpDirection,
-                            t.interpAnchorStride, cache_device(blocks.device))
-        stream = grid[i].reshape(k, -1).index_select(1, perm).reshape(-1)
-        orig = blocks.reshape(k, -1).index_select(1, perm).reshape(-1)
-        out.append((stream, orig.index_select(0, torch.nonzero(stream == 0).reshape(-1))))
+    with trace.span("tune.trials", trials=len(trials), blocks=k,
+                    route=encode_route(blocks)) as sp:
+        plan = stack_plans([_trial_plan(tuple(t.dims), int(t.interpAlgo), t.interpDirection,
+                                        t.interpAnchorStride, t.interpAlpha, t.interpBeta,
+                                        t.absErrorBound, t.quantbinCnt) for t in trials])
+        sp.set(launches=pass_launches(plan, blocks))
+        batch = (len(trials), k)
+        grid = torch.zeros(batch + blocks.shape[1:], dtype=torch.int32, device=blocks.device)
+        encode_grid_fast(blocks.expand(batch + blocks.shape[1:]), plan, lead=2, grid=grid)
+        out = []
+        for i, t in enumerate(trials):
+            perm = _trial_order(tuple(t.dims), int(t.interpAlgo), t.interpDirection,
+                                t.interpAnchorStride, cache_device(blocks.device))
+            stream = grid[i].reshape(k, -1).index_select(1, perm).reshape(-1)
+            orig = blocks.reshape(k, -1).index_select(1, perm).reshape(-1)
+            out.append((stream, orig.index_select(0, torch.nonzero(stream == 0).reshape(-1))))
     return out
 
 
@@ -196,8 +199,7 @@ def _trial_ratios(blocks: torch.Tensor, conf: Config, edge: int, trials,
     so each ratio equals the engine's trial's."""
     ts = [_trial_conf(conf, edge, *trial) for trial in trials]
     num = float(edge ** conf.N * blocks.shape[0] * blocks.element_size())
-    with trace.span("tune.trials", trials=len(ts), blocks=blocks.shape[0]):
-        streams = trial_streams(blocks, ts)
+    streams = trial_streams(blocks, ts)
     with trace.span("tune.seal", trials=len(ts)):
         return [num / len(runtime.interp_seal(t, stream.cpu().numpy(), unpred.cpu().numpy(),
                                               trial_cap))

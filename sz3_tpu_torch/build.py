@@ -168,6 +168,9 @@ def kernels() -> C.CDLL:
                                           i32, i32, p, i64, p]
         lib.szt_lorenzo_select.restype = i32
         lib.szt_lorenzo_select.argtypes = [p, p, p, p, p, i32, i32, i32, C.c_float, p]
+        lib.szt_interp_encode.restype = i32
+        lib.szt_interp_encode.argtypes = [p, p, p, i32, i64, i64, i64, i64, i64, i32, i32,
+                                          C.c_double, p, p, i32, p]
         lib.szt_biomd_frames.restype = i32
         lib.szt_biomd_frames.argtypes = [p, p, p, p, i64, i32, i32, i32, C.c_double, C.c_double,
                                          i32, i32, p]

@@ -12,6 +12,14 @@ Bit parity with the host engine (native/szt/interp.hpp) rests on each
 arithmetic step being its own eager op in the reference's order
 (utils/Interpolators.hpp:12-39), in the data's own precision; Python scalars
 do not promote a float32 tensor.
+
+The encode takes one of two routes, chosen by the input alone
+(:func:`encode_route`): on a CUDA card, float32 and float64 grids take
+csrc/interp_encode.cu, one launch a pass that predicts, quantizes and
+places every point of the pass in place on a working copy of the grid
+(:func:`pass_geometry` describes a pass to it); every other input takes
+:func:`encode_grid_plain`, the passes above as eager ops. Both give the same
+bits.
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ import itertools
 import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..build import kernels
 from .interp_plan import (K_CUBIC, K_LIN1_NEW, K_LIN1_OLD, K_LINEAR, K_QUAD1, K_QUAD2, K_QUAD3,
                           direction_table, level_eb)
 from .quantize import quantize, recover
@@ -318,12 +327,10 @@ def _decimation_chain(x: torch.Tensor, plan: FastPlan, lead: int = 0):
     return cur_arr, curs
 
 
-def encode_grid_fast(x: torch.Tensor, plan: FastPlan, lead: int = 0):
-    """Original grid -> (per-pass bins, first-point bin or None, reconstruction).
-    With `lead`, x is a batch of grids on its first `lead` axes, each encoded
-    on its own (the tuner's trial blocks), and b0 holds one bin a grid. A
-    stacked plan (stack_plans) encodes trial t's grids along x's first axis,
-    which has one entry a trial."""
+def encode_grid_plain(x: torch.Tensor, plan: FastPlan, lead: int = 0):
+    """:func:`encode_grid_fast` as eager ops, on any device: the passes'
+    bins as tensors of their own, the first point's bin, the
+    reconstruction."""
     coarse, curs = _decimation_chain(x, plan, lead)
     bins_out = []
     b0 = None
@@ -339,6 +346,129 @@ def encode_grid_fast(x: torch.Tensor, plan: FastPlan, lead: int = 0):
                                      _pass_eb(spec, ebs, x.ndim), lead)
         bins_out.append(b)
     return bins_out, b0, coarse
+
+
+def encode_route(x: torch.Tensor) -> str:
+    """The route :func:`encode_grid_fast` takes for `x`: "kernel" for a
+    float32 or float64 tensor on a CUDA card, "plain" otherwise."""
+    return "kernel" if x.is_cuda and x.dtype in (torch.float32, torch.float64) else "plain"
+
+
+def pass_launches(plan: FastPlan, x: torch.Tensor) -> int:
+    """The kernel launches :func:`encode_grid_fast` makes for `x` under
+    `plan`: one a pass, and one for the first point of a plan without
+    anchors, on the kernel route; none on the plain route."""
+    if encode_route(x) == "plain":
+        return 0
+    return len(plan.passes) + (plan.anchor_stride == 0)
+
+
+def encode_grid_fast(x: torch.Tensor, plan: FastPlan, lead: int = 0,
+                     grid: Optional[torch.Tensor] = None):
+    """Original grid -> (per-pass bins, first-point bin or None, reconstruction).
+    With `lead`, x is a batch of grids on its first `lead` axes, each encoded
+    on its own (the tuner's trial blocks), and b0 holds one bin a grid. A
+    stacked plan (stack_plans) encodes trial t's grids along x's first axis,
+    which has one entry a trial.
+
+    `grid`, if given, is the bins grid to fill: int32 zeros shaped like x
+    (anchors keep bin 0). On the kernel route (:func:`encode_route`) each
+    pass writes its bins there directly (a grid of zeros is made when none
+    is given), and the per-pass bins and b0 returned are strided views of
+    it; on the plain route the passes' bins are placed there as
+    :func:`bins_to_grid` places them. ``encode_grid_fast.launches`` counts
+    the kernel's launches."""
+    if encode_route(x) == "plain":
+        bins_out, b0, rec = encode_grid_plain(x, plan, lead)
+        if grid is not None:
+            _place(grid, bins_out, plan, b0, lead)
+        return bins_out, b0, rec
+    return _encode_grid_kernel(x, plan, lead, grid)
+
+
+encode_grid_fast.launches = 0
+_ENCODE = encode_grid_fast      # the counter's owner, also while a caller wraps the module's name
+
+
+def pass_geometry(spec: FastPass, dims: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The pass as csrc/interp_encode.cu walks it over a row-major grid of
+    `dims`: (n0..n3, e0..e3, base, dd, cstep, C). The predicted points form
+    an n0 x n1 x n2 x n3 box (ranks below 4 padded with leading axes of
+    count 1 and stride 0) whose point (i0..i3) sits at element offset
+    base + sum(i_a * e_a); dd is the pass axis in those four, and the
+    coarse point A[i] of the point's line at the line's offset (its offset
+    less base + i_dd * e_dd) plus i * cstep, with i clamped to [0, C-1]."""
+    N = len(dims)
+    gs = [1] * N
+    for a in range(N - 2, -1, -1):
+        gs[a] = gs[a + 1] * dims[a + 1]
+    dd = spec.dd
+    n = [spec.p if a == dd else spec.shape_in[a] for a in range(N)]
+    e = [spec.cur_steps[a] * gs[a] for a in range(N)]
+    pad = 4 - N
+    return (*([1] * pad + n), *([0] * pad + e), spec.cur_start[dd] * gs[dd], dd + pad,
+            spec.src_steps[dd] * gs[dd], spec.shape_in[dd])
+
+
+def pass_rows(plan: FastPlan, device, trials: int, lead: int):
+    """The pass table csrc/interp_encode.cu takes: (passes, 15) int64 rows,
+    each pass's :func:`pass_geometry`, then the address of its kinds on
+    `device` (_consts), their stride from trial to trial (P in a stacked
+    plan, else 0) and the address of its per-trial bounds (0 where the
+    trials share one); and (passes,) float64, each pass's shared bound (0
+    where it has per-trial bounds). The geometry is made once a plan."""
+    geo = plan.__dict__.get("_geometry")
+    if geo is None:
+        geo = np.array([pass_geometry(spec, plan.dims) for spec in plan.passes],
+                       np.int64).reshape(-1, 12)
+        object.__setattr__(plan, "_geometry", geo)
+    rows = np.zeros((len(plan.passes), 15), np.int64)
+    rows[:, :12] = geo
+    ebs = np.zeros(len(plan.passes), np.float64)
+    for k, (spec, (kind, teb)) in enumerate(zip(plan.passes, _consts(plan, device))):
+        if kind.dim() == 2 and (lead == 0 or kind.shape[0] != trials):
+            raise ValueError(f"a plan stacked over {kind.shape[0]} trials for {trials} trials")
+        rows[k, 12:] = (kind.data_ptr(), kind.shape[1] if kind.dim() == 2 else 0,
+                        0 if teb is None else teb.data_ptr())
+        ebs[k] = 0.0 if teb is not None else spec.eb
+    return rows, ebs
+
+
+def _encode_grid_kernel(x: torch.Tensor, plan: FastPlan, lead: int,
+                        grid: Optional[torch.Tensor]):
+    """The kernel route of :func:`encode_grid_fast`: a working copy of x
+    (the lead axes materialised), then one launch of csrc/interp_encode.cu
+    a pass, all from one C call."""
+    N = len(plan.dims)
+    batch = tuple(x.shape[:lead])
+    if tuple(x.shape[lead:]) != plan.dims:
+        raise ValueError(f"grid of shape {tuple(x.shape[lead:])} for a plan of {plan.dims}")
+    T = batch[0] if lead else 1
+    K = int(np.prod(batch[1:], dtype=np.int64)) if lead > 1 else 1
+    xv = x.reshape((T, K) + plan.dims)
+    if not xv[0, 0].is_contiguous():    # each grid of x is read in w's layout
+        xv = xv.contiguous()
+    work = torch.empty((T, K) + plan.dims, dtype=x.dtype, device=x.device)
+    work.copy_(xv)
+    if grid is None:
+        grid = torch.zeros(batch + plan.dims, dtype=torch.int32, device=x.device)
+    elif (grid.dtype != torch.int32 or tuple(grid.shape) != batch + plan.dims
+          or not grid.is_contiguous() or grid.device != x.device):
+        raise ValueError(f"bins grid of {grid.dtype} {tuple(grid.shape)} on {grid.device}: "
+                         f"want contiguous int32 zeros {batch + plan.dims} on {x.device}")
+    rows, ebs = pass_rows(plan, x.device, T, lead)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = kernels().szt_interp_encode(
+        xv.data_ptr(), work.data_ptr(), grid.data_ptr(), int(x.dtype == torch.float64), T, K,
+        xv.stride(0), xv.stride(1), int(np.prod(plan.dims, dtype=np.int64)), plan.radius,
+        int(plan.anchor_stride != 0), float(plan.base_eb), rows.ctypes.data, ebs.ctypes.data,
+        len(plan.passes), stream)
+    if rc != 0:
+        raise RuntimeError(f"szt_interp_encode: CUDA error {rc}")
+    _ENCODE.launches += pass_launches(plan, x)
+    lead_ix = (slice(None),) * lead
+    b0 = grid[lead_ix + (0,) * N] if plan.anchor_stride == 0 else None
+    return grid_to_pass_slices(grid, plan, lead), b0, work.reshape(batch + plan.dims)
 
 
 def decode_grid_fast(bins_list, literal_list, plan: FastPlan, lit0: torch.Tensor,
@@ -363,22 +493,29 @@ def _pass_index(spec: FastPass):
                  for a in range(len(spec.cur_start)))
 
 
+def _place(grid: torch.Tensor, bins_list, plan: FastPlan, b0, lead: int = 0) -> None:
+    """Per-pass bins into the bins grid, by strided slice assignment."""
+    ix = (slice(None),) * lead
+    if plan.anchor_stride == 0:
+        grid[ix + (0,) * len(plan.dims)] = b0
+    for spec, b in zip(plan.passes, bins_list):
+        grid[ix + _pass_index(spec)] = b
+
+
 def bins_to_grid(bins_list, plan: FastPlan, b0, device, batch: Tuple[int, ...] = ()
                  ) -> torch.Tensor:
     """Per-pass bins -> the bins grid (anchors at bin 0), by strided slice
     assignment; with `batch`, the leading shape of a batch of grids."""
     grid = torch.zeros(tuple(batch) + plan.dims, dtype=torch.int32, device=device)
-    lead = (slice(None),) * len(batch)
-    if plan.anchor_stride == 0:
-        grid[lead + (0,) * len(plan.dims)] = b0
-    for spec, b in zip(plan.passes, bins_list):
-        grid[lead + _pass_index(spec)] = b
+    _place(grid, bins_list, plan, b0, len(batch))
     return grid
 
 
-def grid_to_pass_slices(grid: torch.Tensor, plan: FastPlan):
-    """Strided views of a bins or literal grid, one per pass."""
-    return [grid[_pass_index(spec)] for spec in plan.passes]
+def grid_to_pass_slices(grid: torch.Tensor, plan: FastPlan, lead: int = 0):
+    """Strided views of a bins or literal grid, one per pass; with `lead`,
+    of a batch of grids on its first `lead` axes."""
+    ix = (slice(None),) * lead
+    return [grid[ix + _pass_index(spec)] for spec in plan.passes]
 
 
 def initial_literal(literal: torch.Tensor, plan: FastPlan) -> torch.Tensor:
