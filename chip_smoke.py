@@ -170,7 +170,14 @@ Phases, each unguarded (a failure raises and the script exits non-zero):
      worked out again from the input (the cell's check, max_err_over_eb <=
      1.0); the tuner's pick a field, read from its dispatch.tune span, equal to
      the archive's Config. Alone: ``python3 -c "import torch, chip_smoke;
-     chip_smoke.phase14_cesm2d(torch.device('cuda'))"``.
+     chip_smoke.phase14_cesm2d(torch.device('cuda'))"``;
+ 15. the same for the cell qmcpack4d-roundtrip against the plain reference of
+     SZ3's 3D/4D interpolation (szbench/reference/interp_plain_nd.py): its 4
+     QMCPACK-like tables at 288 x 115 x 69 x 69, made by the cell's
+     generator (einspline_like) from data_seed, the passes on the kernel
+     route (the interp.passes span's route, with its rank and predicted).
+     Alone: ``python3 -c "import torch, chip_smoke;
+     chip_smoke.phase15_qmcpack4d(torch.device('cuda'))"``.
 The host engine is the port's own (sz3_tpu_torch/csrc/engine, built here by
 sz3_tpu_torch.build.host_engine()). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels. Without a CUDA device, or
@@ -319,9 +326,12 @@ def _phase9_rank(rank: int, world: int, store: str, out: str, field: str, modes)
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def phase14_cesm2d(dev) -> dict:
-    """Phase 14: the fields of the cell cesm2d-fields through the benchmark's
-    calls, each held to the plain reference of SZ3's 2D interpolation."""
+def cell_against_reference(dev, phase: int, workload: str, ref_module: str) -> dict:
+    """The fields of the benchmark's cell `workload` through the benchmark's
+    calls, each held to the plain reference szbench/reference/<ref_module>.py
+    run on the card with the Config the archive carries (phases 14 and 15)."""
+    import importlib
+
     import numpy as np
     import torch
 
@@ -331,10 +341,10 @@ def phase14_cesm2d(dev) -> dict:
     from sz3_tpu_torch.utils import trace
     from szbench.harness import manifest, port
     from szbench.reference import errbound
-    from szbench.reference import interp_plain as ip
 
-    t14 = time.perf_counter()
-    cell = manifest.find_cell(manifest.load_manifest(ROOT), "cesm2d-fields", ROOT)
+    ip = importlib.import_module(f"szbench.reference.{ref_module}")
+    t_phase = time.perf_counter()
+    cell = manifest.find_cell(manifest.load_manifest(ROOT), workload, ROOT)
     cfg = cell.config
     gen = manifest.generator(cfg["generator"])
     pool = gen.make(tuple(cfg["shape"]), int(cfg["fields"]), int(cfg["data_seed"]), dev)
@@ -352,9 +362,17 @@ def phase14_cesm2d(dev) -> dict:
         out, carried = szp.decompress(blob, device=dev)     # Port.decompress, with the Config
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        tune, = [sp.attrs for sp in trace.spans() if sp.name == "dispatch.tune"]
+        spans = trace.spans()
+        tune, = [sp.attrs for sp in spans if sp.name == "dispatch.tune"]
+        passes, = [sp.attrs for sp in spans if sp.name == "interp.passes"]
         xd = torch.from_numpy(x).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
         ref = ip.encode(xd, **ip.settings(carried))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t
+        ref_peak = torch.cuda.max_memory_allocated() - base
         plan = build_fast_plan(tuple(cfg["shape"]), interp_algo=int(carried.interpAlgo),
                                direction=carried.interpDirection,
                                anchor_stride=carried.interpAnchorStride,
@@ -367,6 +385,7 @@ def phase14_cesm2d(dev) -> dict:
             "direction": carried.interpDirection, "alpha": carried.interpAlpha,
             "beta": carried.interpBeta, "anchor": carried.interpAnchorStride,
             "ratio": x.nbytes / len(blob), "round_trip_s": wall, "tune": tune,
+            "passes": {k: passes.get(k) for k in ("route", "launches", "rank", "predicted")},
             "tune_is_carried": (tune["interp_algo"], tune["direction"], tune["alpha"],
                                 tune["beta"]) == (int(carried.interpAlgo), carried.interpDirection,
                                                   carried.interpAlpha, carried.interpBeta),
@@ -374,33 +393,51 @@ def phase14_cesm2d(dev) -> dict:
             "bins_equal": bool(torch.equal(bins_to_grid(bins, plan, b0, dev), ref.bins)),
             "order_equal": bool(np.array_equal(runtime.interp_order(carried),
                                                ref.order.cpu().numpy())),
-            "unpred": int(ref.unpred.numel()),
+            "unpred": int(ref.unpred.numel()), "reference_s": ref_s,
+            "reference_peak_bytes": int(ref_peak),
             "max_err_over_eb": errbound.max_abs_error(xd, out) / eb})
-        print(f"phase 14 field {v}: {json.dumps(rows[-1])}", flush=True)
+        print(f"phase {phase} field {v}: {json.dumps(rows[-1])}", flush=True)
         del out, xd, ref, bins
     if not traced:
         trace.disable()
-    summary = {"fields": len(rows), "bit_equal": sum(r["bit_equal"] for r in rows),
+    summary = {"workload": workload, "fields": len(rows),
+               "bit_equal": sum(r["bit_equal"] for r in rows),
                "bins_equal": sum(r["bins_equal"] for r in rows),
                "order_equal": sum(r["order_equal"] for r in rows),
                "max_err_over_eb": max(r["max_err_over_eb"] for r in rows),
                "picks": sorted({(r["interp_algo"], r["direction"], r["alpha"], r["beta"])
                                 for r in rows}),
-               "phase_s": time.perf_counter() - t14}
-    print(f"phase 14: {json.dumps(summary)}", flush=True)
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"phase {phase}: {json.dumps(summary)}", flush=True)
     check(all(r["algo"] == int(szp.ALGO.INTERP) for r in rows),
-          "phase 14: a field did not take INTERP")
+          f"phase {phase}: a field did not take INTERP")
     check(all(r["tune_is_carried"] for r in rows),
-          "phase 14: a dispatch.tune span's decision differs from the archive's Config")
+          f"phase {phase}: a dispatch.tune span's decision differs from the archive's Config")
+    check(all(r["passes"]["route"] == "kernel" for r in rows),
+          f"phase {phase}: the passes did not take the kernel route")
     check(summary["bit_equal"] == summary["fields"],
-          f"phase 14: {summary['fields'] - summary['bit_equal']} decoded fields differ from the "
-          f"plain reference's reconstruction")
-    check(summary["bins_equal"] == summary["fields"], "phase 14: bins differ from the reference's")
+          f"phase {phase}: {summary['fields'] - summary['bit_equal']} decoded fields differ from "
+          f"the plain reference's reconstruction")
+    check(summary["bins_equal"] == summary["fields"],
+          f"phase {phase}: bins differ from the reference's")
     check(summary["order_equal"] == summary["fields"],
-          "phase 14: the stream order differs from the reference's")
+          f"phase {phase}: the stream order differs from the reference's")
     check(summary["max_err_over_eb"] <= 1.0,
-          f"phase 14: max_err_over_eb {summary['max_err_over_eb']!r} over 1.0")
+          f"phase {phase}: max_err_over_eb {summary['max_err_over_eb']!r} over 1.0")
     return summary
+
+
+def phase14_cesm2d(dev) -> dict:
+    """Phase 14: the fields of the cell cesm2d-fields through the benchmark's
+    calls, each held to the plain reference of SZ3's 2D interpolation."""
+    return cell_against_reference(dev, 14, "cesm2d-fields", "interp_plain")
+
+
+def phase15_qmcpack4d(dev) -> dict:
+    """Phase 15: the tables of the cell qmcpack4d-roundtrip through the
+    benchmark's calls, each held to the plain reference of SZ3's 3D/4D
+    interpolation."""
+    return cell_against_reference(dev, 15, "qmcpack4d-roundtrip", "interp_plain_nd")
 
 
 def np_verify(original, decoded) -> dict:
@@ -3471,6 +3508,10 @@ def main() -> int:
     # ---- phase 14: the cell cesm2d-fields against the plain reference ---------------------
     phase14_cesm2d(dev)
     stamp("phase 14 done")
+
+    # ---- phase 15: the cell qmcpack4d-roundtrip against the plain reference ---------------
+    phase15_qmcpack4d(dev)
+    stamp("phase 15 done")
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "sz3_tpu" or m.startswith("sz3_tpu.") for m in sys.modules),

@@ -37,7 +37,8 @@ from ..ops import biomd_device as bd
 from ..ops import entropy_device as ed
 from ..ops import stream_order
 from ..ops import xtc_device as xtc
-from ..ops.interp_fast import build_fast_plan, encode_grid_fast, encode_route, pass_launches
+from ..ops.interp_fast import (build_fast_plan, encode_grid_fast, encode_route, pass_launches,
+                               pass_points)
 from ..ops.quantize import by_slices, quantize
 from ..utils import trace
 from ..utils.copies import to_host
@@ -177,7 +178,8 @@ def pack_device(conf: Config, x: torch.Tensor) -> Packed:
     plan = plan_for(conf)
     num = int(np.prod(conf.dims))
     with trace.span("interp.passes", points=num, route=encode_route(x),
-                    launches=pass_launches(plan, x)):
+                    launches=pass_launches(plan, x), rank=len(plan.dims),
+                    predicted=pass_points(plan)):
         grid = torch.zeros(plan.dims, dtype=torch.int32, device=x.device)
         encode_grid_fast(x, plan, grid=grid)
     with trace.span("interp.stream_order"):

@@ -410,6 +410,25 @@ def pass_geometry(spec: FastPass, dims: Tuple[int, ...]) -> Tuple[int, ...]:
             spec.src_steps[dd] * gs[dd], spec.shape_in[dd])
 
 
+def _geometry(plan: FastPlan) -> np.ndarray:
+    """(passes, 12) int64, each pass's :func:`pass_geometry`, made once a
+    plan, with the points the passes predict (:func:`pass_points`)."""
+    geo = plan.__dict__.get("_geometry")
+    if geo is None:
+        geo = np.array([pass_geometry(spec, plan.dims) for spec in plan.passes],
+                       np.int64).reshape(-1, 12)
+        object.__setattr__(plan, "_geometry", geo)
+        object.__setattr__(plan, "_predicted", int(geo[:, :4].prod(axis=1).sum()))
+    return geo
+
+
+def pass_points(plan: FastPlan) -> int:
+    """The points the plan's passes predict, one grid: the sum of n0 n1 n2
+    n3 over its :func:`pass_geometry` rows (a host number, cached with them)."""
+    _geometry(plan)
+    return plan._predicted
+
+
 def pass_rows(plan: FastPlan, device, trials: int, lead: int):
     """The pass table csrc/interp_encode.cu takes: (passes, 15) int64 rows,
     each pass's :func:`pass_geometry`, then the address of its kinds on
@@ -417,13 +436,8 @@ def pass_rows(plan: FastPlan, device, trials: int, lead: int):
     plan, else 0) and the address of its per-trial bounds (0 where the
     trials share one); and (passes,) float64, each pass's shared bound (0
     where it has per-trial bounds). The geometry is made once a plan."""
-    geo = plan.__dict__.get("_geometry")
-    if geo is None:
-        geo = np.array([pass_geometry(spec, plan.dims) for spec in plan.passes],
-                       np.int64).reshape(-1, 12)
-        object.__setattr__(plan, "_geometry", geo)
     rows = np.zeros((len(plan.passes), 15), np.int64)
-    rows[:, :12] = geo
+    rows[:, :12] = _geometry(plan)
     ebs = np.zeros(len(plan.passes), np.float64)
     for k, (spec, (kind, teb)) in enumerate(zip(plan.passes, _consts(plan, device))):
         if kind.dim() == 2 and (lead == 0 or kind.shape[0] != trials):

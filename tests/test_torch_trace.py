@@ -4,8 +4,11 @@ public call, cross to worker threads with a handed parent, and fill a
 bounded buffer that counts what it drops. Round trips on the CPU name every
 layer of the INTERP and LORENZO_REG routes under their public call, with
 the counters their callers hold, and write the same archives with tracing
-on and off. On a CUDA card, every K1 and K2+K3 launch lies inside its
-entropy span, in the profiler's timeline and on the host clock.
+on and off; ``interp.passes`` carries the plan's rank and the points its
+passes predicted at 2D, 3D and 4D, and the INTERP passes' roofline bytes
+come to 28 a float32 point at the 512^3 plan. On a CUDA card, every K1 and
+K2+K3 launch lies inside its entropy span, in the profiler's timeline and on
+the host clock.
 
 Run the card's case:  python -m pytest tests/test_torch_trace.py -q -m cuda
 """
@@ -22,8 +25,11 @@ import sz3_tpu_torch as szp
 from sz3_tpu_torch import runtime, serving
 from sz3_tpu_torch import utils as putils
 from sz3_tpu_torch.ops import blockwise_layout as bl
+from sz3_tpu_torch.algos import device_encode
 from sz3_tpu_torch.ops import blockwise_wavefront_encode as wfe
+from sz3_tpu_torch.ops import interp_fast
 from sz3_tpu_torch.utils import trace
+from szbench.roofline import interp_encode, stages
 
 INTERP_ENCODE = {"api.compress", "dispatch.bound", "dispatch.tune", "tune.sample",
                  "tune.trials", "tune.seal", "copy.h2d", "interp.passes",
@@ -227,6 +233,40 @@ def test_tune_span_carries_the_decision(traced, shape):
          carried.interpBeta)
     assert a["trials"] == 6 and a["blocks"] > 0 and a["est_ratio"] > 0
     assert a["edge"] >= 9 and (a["edge"] - 1) & (a["edge"] - 2) == 0   # a power of two, plus 1
+
+
+@pytest.mark.parametrize("shape", [(117, 117), (40, 33, 20), (19, 11, 13, 10), (35, 23, 19, 19)])
+def test_interp_passes_carry_rank_and_predicted(traced, shape):
+    """interp.passes holds the plan's rank and the points its passes
+    predicted: the sum of n0 n1 n2 n3 over pass_geometry's rows, which is
+    every point but the anchors (or but the first point, without them)."""
+    rng = np.random.default_rng(9)
+    x = np.exp(0.05 * np.cumsum(rng.standard_normal(shape), 0)).astype(np.float32)
+    blob = szp.compress(x, szp.Config(errorBoundMode=szp.EB.REL, relErrorBound=1e-4),
+                        device="cpu")
+    _, carried = szp.decompress(blob, device="cpu")
+    passes, = [s.attrs for s in trace.spans() if s.name == "interp.passes"]
+    plan = device_encode.plan_for(carried)
+    rows = [interp_fast.pass_geometry(spec, plan.dims) for spec in plan.passes]
+    anchor = plan.anchor_stride
+    fixed = int(np.prod([len(range(0, n, anchor)) for n in shape])) if anchor else 1
+    assert passes["rank"] == len(shape) and passes["points"] == x.size
+    assert passes["predicted"] == sum(int(np.prod(r[:4])) for r in rows) == x.size - fixed
+
+
+def test_interp_encode_bytes_at_the_512_plan():
+    """The roofline's bytes of the INTERP passes count 28 bytes a float32
+    point at the 512^3 plan (chip_smoke.py's bound: 1.122 ms at 3.35 TB/s)."""
+    n = 512 ** 3
+    plan = interp_fast.build_fast_plan((512,) * 3, interp_algo=1, direction=0,
+                                       anchor_stride=32, alpha=1.25, beta=2.0, eb=1e-3,
+                                       quantbin_cnt=65536)
+    predicted = interp_fast.pass_points(plan)
+    assert predicted == n - 16 ** 3
+    nbytes = interp_encode.interp_encode_bytes(n, predicted, 4)
+    assert nbytes / n == pytest.approx(28, abs=1e-3)
+    assert stages.bound_s(nbytes) * 1e3 == pytest.approx(1.122, abs=5e-4)
+    assert interp_encode.interp_encode_bytes(n, n, 8) == 48 * n
 
 
 def test_batch_seals_run_under_their_fields(traced):
